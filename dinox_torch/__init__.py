@@ -1,0 +1,18 @@
+"""dinox_torch: the PyTorch/CUDA port of dinox_tpu for one NVIDIA H100.
+
+The layout mirrors ``dinox_tpu`` module for module, so each counterpart has
+the same name:
+
+* ``models/``  ``config`` (ModelConfig, presets) and ``vit`` (PatchViT with
+  ScaleEmbedding, timm-style parameter names).
+* ``ops/``     hand-written Hopper kernels (``csrc/*.cu``), each beside its
+  plain PyTorch version; ``_build`` compiles them with nvcc at first use.
+* ``zoo/``     ``interop`` (timm <-> JAX-package keys), ``hub`` (load/export
+  hub dirs and training checkpoints), ``encode`` (HU preprocessing and
+  batched encode), ``safetensors_io``.
+* ``data/``    ``hu`` constants.
+* ``utils/``   ``platform`` (device resolution: CUDA unless asked for the CPU).
+* ``serve``    the embedding server (``python -m dinox_torch.serve``).
+
+The port imports neither JAX nor anything of ``dinox_tpu``.
+"""

@@ -1,0 +1,243 @@
+"""PatchViT with ScaleEmbedding in PyTorch: the counterpart of
+``dinox_tpu.models.vit``.
+
+Parameter names are the timm-style keys of ``zoo.interop``, so
+``state_dict()`` is a hub/reference state dict. Parameters are float32; the
+compute dtype is ``cfg.dtype``. The arithmetic follows the JAX package's
+rounding points:
+
+* The residual stream stays in the compute dtype; ``embed`` returns it.
+* A dense layer rounds ``x @ W`` to the compute dtype and *then* adds the
+  bias in that dtype (``F.linear`` would add it before rounding).
+* LayerNorms take float32 statistics with the fast variance
+  E[x^2] - E[x]^2 clipped at 0 (flax's default). Block and ScaleEmbedding
+  norms output the compute dtype; the final norm is float32.
+* The MLP's GELU follows ``cfg.gelu_approx`` (tanh by default);
+  ScaleEmbedding always uses the exact erf GELU.
+* Patch embedding is unfold + matmul on NHWC input, the same function as the
+  JAX package's VALID strided conv.
+* Token order [CLS, patches, registers]; the scale token is added to CLS and
+  patches before the registers are appended, and skipped without spacing.
+* Attention is the packed-QKV kernel (``ops.flash_attention``) for
+  ``attn_impl="pallas"``, its plain version for ``"xla"``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dinox_torch.models.config import ModelConfig
+from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+ATTN_IMPLS = ("pallas", "xla")
+
+# flax's truncated_normal(stddev) truncates at +-2 and rescales so the
+# truncated distribution has the requested stddev.
+_TRUNC_STD = 0.87962566103423978
+
+
+class Linear(nn.Module):
+    """Dense layer: ``x @ W^T`` rounded to x's dtype, then ``+ b`` in that dtype."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm: float32 fast-variance statistics, output in ``out_dtype``."""
+
+    def __init__(self, dim: int, out_dtype: torch.dtype, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.out_dtype = out_dtype
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.out_dtype)
+
+
+class PatchEmbed(nn.Module):
+    """NHWC images -> (B, n_patches, dim), row-major patch order; weight in the
+    timm/conv layout (dim, 3, p, p)."""
+
+    def __init__(self, patch: int, dim: int):
+        super().__init__()
+        self.patch = patch
+        self.weight = nn.Parameter(torch.empty(dim, 3, patch, patch))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        p = self.patch
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, (h // p) * (w // p), p * p * c)
+        wt = self.weight.to(x.dtype).permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        return torch.matmul(x, wt.t()) + self.bias.to(x.dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a fused ``qkv`` projection and ``proj``."""
+
+    def __init__(self, dim: int, heads: int, attn_impl: str):
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        self.heads = heads
+        self.attn_impl = attn_impl
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qkv = self.qkv(x)
+        if self.attn_impl == "pallas":
+            out = flash_attention_packed(qkv, self.heads)
+        else:
+            out = packed_attention_reference(qkv, self.heads)
+        return self.proj(out)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int, gelu_approx: bool):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
+        self.approximate = "tanh" if gelu_approx else "none"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block; the residual stream stays in the compute dtype."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+        super().__init__()
+        self.norm1 = LayerNorm(cfg.dim, dtype)
+        self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl)
+        self.norm2 = LayerNorm(cfg.dim, dtype)
+        self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class ScaleEmbedding(nn.Module):
+    """Physical spacing (sx, sy, slice thickness in mm) -> (B, 1, dim):
+    3 -> max(dim//4, 16) -> exact GELU -> dim -> LayerNorm. The output layer
+    starts at zero, so a fresh ScaleEmbedding is a no-op."""
+
+    def __init__(self, dim: int, dtype: torch.dtype):
+        super().__init__()
+        hidden = max(dim // 4, 16)
+        self.dtype = dtype
+        self.mlp = nn.Sequential(Linear(3, hidden), nn.GELU(), Linear(hidden, dim),
+                                 LayerNorm(dim, dtype))
+
+    def forward(self, spacing: torch.Tensor) -> torch.Tensor:
+        return self.mlp(spacing.to(self.dtype))[:, None, :]
+
+
+def _reject_unported(cfg: ModelConfig) -> None:
+    for field, unported in (("lora_rank", cfg.lora_rank > 0), ("moe_experts", cfg.moe_experts > 0),
+                            ("fused_mlp", cfg.fused_mlp), ("fused_attn", cfg.fused_attn)):
+        if unported:
+            raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch yet")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"compute dtype {cfg.dtype!r} not supported (one of {sorted(DTYPES)})")
+
+
+class PatchViT(nn.Module):
+    """Patch ViT with optional ScaleEmbedding.
+
+    Input: NHWC float images (B, H, W, 3) and optional spacing (B, 3). Returns
+    all tokens (B, N, dim) in float32 after the final LayerNorm; token order
+    [CLS, patches, registers]. Parameters are made on the CPU from
+    *generator* (seed 0 when None), then moved to *device*."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _reject_unported(cfg)
+        self.cfg = cfg
+        self.compute_dtype = DTYPES[cfg.dtype]
+        d = cfg.dim
+        self.patch_embed = PatchEmbed(cfg.patch, d)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, d))
+        self.pos_embed = nn.Parameter(torch.empty(1, 1 + cfg.n_patches, d))
+        if cfg.num_registers > 0:
+            self.registers = nn.Parameter(torch.empty(1, cfg.num_registers, d))
+        if cfg.scale_aware:
+            self.scale_embed = ScaleEmbedding(d, self.compute_dtype)
+        self.blocks = nn.ModuleList(TransformerBlock(cfg, self.compute_dtype) for _ in range(cfg.depth))
+        self.norm = LayerNorm(d, torch.float32)
+        self.reset_parameters(generator)
+        if device is not None:
+            self.to(device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The JAX package's initialisers (xavier-uniform dense kernels, zero
+        biases, unit LayerNorm scales, truncated normals for the patch
+        embedding and tokens, a zero ScaleEmbedding output layer)."""
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+
+        def trunc(t: torch.Tensor, std: float) -> None:
+            s = std / _TRUNC_STD
+            nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=g)
+
+        for m in self.modules():
+            if isinstance(m, Linear):
+                nn.init.xavier_uniform_(m.weight, generator=g)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        trunc(self.patch_embed.weight, 0.02)
+        self.patch_embed.bias.zero_()
+        trunc(self.cls_token, 0.02)
+        trunc(self.pos_embed, 0.1)
+        if self.cfg.num_registers > 0:
+            trunc(self.registers, 0.02)
+        if self.cfg.scale_aware:
+            self.scale_embed.mlp[2].weight.zero_()
+            self.scale_embed.mlp[3].weight.fill_(self.cfg.scale_gamma_init)
+
+    def embed(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Patch embed + CLS + positional + scale token + registers -> (B, N, dim)."""
+        dt = self.compute_dtype
+        b = x.shape[0]
+        x = self.patch_embed(x.to(dt))
+        x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
+        x = x + self.pos_embed.to(dt)
+        if self.cfg.scale_aware and spacing is not None:
+            x = x + self.scale_embed(spacing)
+        if self.cfg.num_registers > 0:
+            x = torch.cat([x, self.registers.to(dt).expand(b, -1, -1)], dim=1)
+        return x
+
+    def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+    def run_final_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x.float())
+
+    def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.run_final_norm(self.run_blocks(self.embed(x, spacing)))

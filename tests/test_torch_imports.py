@@ -1,0 +1,36 @@
+"""The port stands alone: no module of dinox_torch, and not chip_smoke.py,
+imports JAX, flax, optax or the JAX package, and nothing on the serving path
+imports PIL, safetensors or huggingface_hub (the GPU machine has none of
+them). Checked on the source with an AST scan."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "dinox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dinox_tpu", "PIL", "safetensors",
+             "huggingface_hub"}
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, mod) for line, mod in _imported_roots(tree) if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_the_package():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"dinox_torch/serve.py", "dinox_torch/zoo/hub.py", "dinox_torch/models/vit.py",
+            "dinox_torch/ops/flash_attention.py", "chip_smoke.py"} <= names
