@@ -20,6 +20,13 @@ rounding points:
   patches before the registers are appended, and skipped without spacing.
 * Attention is the packed-QKV kernel (``ops.flash_attention``) for
   ``attn_impl="pallas"``, its plain version for ``"xla"``.
+* ``use_grad_checkpoint`` recomputes each block in the backward
+  (``torch.utils.checkpoint``), only in training mode, like the JAX
+  package's ``nn.remat`` under ``train=True``.
+
+:class:`DinoStudentTeacher` adds the DINO head on CLS; its ``state_dict()``
+keys are ``backbone.*``, ``head.0.*`` and ``head.2.*``, the keys of
+``zoo.interop.jax_to_torch_student``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from dinox_torch.models.config import ModelConfig
@@ -232,8 +240,9 @@ class PatchViT(nn.Module):
         return x
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.cfg.use_grad_checkpoint and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
+            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return x
 
     def run_final_norm(self, x: torch.Tensor) -> torch.Tensor:
@@ -241,3 +250,46 @@ class PatchViT(nn.Module):
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.run_final_norm(self.run_blocks(self.embed(x, spacing)))
+
+
+class DinoHead(nn.Sequential):
+    """DINO projection head: dim -> dim -> exact GELU -> out_dim, computed in
+    the compute dtype, output float32. Its input (CLS after the f32 final
+    norm) is cast to the compute dtype first, as flax's ``Dense(dtype=...)``
+    does."""
+
+    def __init__(self, dim: int, out_dim: int, dtype: torch.dtype):
+        super().__init__(Linear(dim, dim), nn.GELU(), Linear(dim, out_dim))
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.dtype)).float()
+
+
+class DinoStudentTeacher(nn.Module):
+    """Backbone + projection head on the CLS token. As in the JAX package,
+    the student and the teacher are two instances of this module; the
+    teacher is updated by EMA outside it. Parameters are made on the CPU
+    from *generator* (seed 0 when None), then moved to *device*."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.backbone = PatchViT(cfg, generator=g)
+        self.head = DinoHead(cfg.dim, cfg.out_dim, self.backbone.compute_dtype)
+        with torch.no_grad():
+            for lin in (self.head[0], self.head[2]):
+                nn.init.xavier_uniform_(lin.weight, generator=g)
+        if device is not None:
+            self.to(device)
+
+    def forward_features(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (head output (B, out_dim) f32, all tokens (B, N, dim) f32)."""
+        feats = self.backbone(x, spacing)
+        return self.head(feats[:, 0]), feats
+
+    def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.forward_features(x, spacing)[0]

@@ -1,0 +1,103 @@
+"""Roofline bounds: the least time a card could take for a function's work,
+the larger of its bytes over the memory rate and its operations over the
+peak rate. Each input is counted read once and each output written once.
+
+    python -m dinox_torch.utils.roofline ["NVIDIA H100 80GB HBM3"]
+
+prints the bound of each of the JAX package's TPU kernels (the functions
+that reach ``pl.pallas_call``) at the shapes of the ViT-S training step
+(2 x 96 views, N=261, dim 384, 6 heads), kernel 3 at the ViT-G shape it is
+taken for (2 views, dim 1408, 16 heads), on the named card's published
+peaks (H100 SXM by default).
+"""
+
+from __future__ import annotations
+
+import sys
+
+from dinox_torch.utils.flops import card_peaks
+
+BF16, F32 = 2, 4
+
+
+def bound_ms(moved_bytes: float, flops: float, peaks: tuple[float, float]) -> tuple[float, str]:
+    """(bound in ms, "bytes" or "operations") for *peaks* = (FLOP/s, B/s)."""
+    t_ops, t_bytes = flops / peaks[0] * 1e3, moved_bytes / peaks[1] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_fwd_work(b: int, n: int, dim: int, heads: int) -> tuple[float, float]:
+    """Packed (or head-major) attention forward: qkv in, out out, bf16."""
+    hd = dim // heads
+    return BF16 * b * n * (3 * dim + dim), 4.0 * b * heads * n * n * hd
+
+
+def attention_bwd_work(b: int, n: int, dim: int, heads: int) -> tuple[float, float]:
+    """Its backward: qkv and dO in, dqkv out; S, dV, dP, dQ, dK products."""
+    hd = dim // heads
+    return BF16 * b * n * (3 * dim + dim + 3 * dim), 10.0 * b * heads * n * n * hd
+
+
+def fused_attn_work(b: int, n: int, dim: int, heads: int) -> tuple[float, float]:
+    """LN -> QKV -> attention -> proj -> +x: x, f32 LN parameters and
+    biases, bf16 weights in; y and, for the backward, qkv and the attention
+    output out."""
+    hd = dim // heads
+    params = F32 * (2 * dim + 3 * dim + dim) + BF16 * (3 * dim * dim + dim * dim)
+    moved = BF16 * b * n * (dim + dim + 3 * dim + dim) + params
+    return moved, 2.0 * b * n * dim * 4 * dim + 4.0 * b * heads * n * n * hd
+
+
+def fused_mlp_fwd_work(rows: int, dim: int, hidden: int) -> tuple[float, float]:
+    """LN -> fc1 -> GELU -> fc2 -> +x over *rows* tokens."""
+    params = F32 * (2 * dim + hidden + dim) + BF16 * 2 * dim * hidden
+    return BF16 * rows * dim * 2 + params, 4.0 * rows * dim * hidden
+
+
+def fused_mlp_bwd_work(rows: int, dim: int, hidden: int) -> tuple[float, float]:
+    """Its backward: x, dy and the parameters in; dx and the f32 parameter
+    gradients out; fc1 recomputed, dW2, dh, dW1 and dx (five products)."""
+    params_in = F32 * (2 * dim + hidden) + BF16 * 2 * dim * hidden
+    grads_out = F32 * (2 * dim + hidden + dim + 2 * dim * hidden)
+    return BF16 * rows * dim * 3 + params_in + grads_out, 10.0 * rows * dim * hidden
+
+
+def tpu_kernel_bounds(peaks: tuple[float, float], views: int = 192, n: int = 261,
+                      dim: int = 384, heads: int = 6, mlp_ratio: float = 4.0,
+                      giant: tuple[int, int, int, int] = (2, 261, 1408, 16)) -> list[dict]:
+    """One row per TPU kernel: number, function, shape, bytes, FLOPs, bound."""
+    hidden = int(dim * mlp_ratio)
+    step = (views, n, dim, heads)
+    rows = [
+        (1, "_packed_kernel", step, attention_fwd_work(*step)),
+        (2, "_packed_bwd_kernel", step, attention_bwd_work(*step)),
+        (3, "_packed_bwd_dq_kernel + _packed_bwd_dkv_kernel", giant, attention_bwd_work(*giant)),
+        (4, "_mha_kernel", step, attention_fwd_work(*step)),
+        (5, "_mha_bwd_kernel", step, attention_bwd_work(*step)),
+        (6, "_fused_kernel (fused_attn_block)", step, fused_attn_work(*step)),
+        (7, "fused_mlp _fwd_kernel", (views * n, dim, hidden),
+         fused_mlp_fwd_work(views * n, dim, hidden)),
+        (8, "fused_mlp _bwd_kernel", (views * n, dim, hidden),
+         fused_mlp_bwd_work(views * n, dim, hidden)),
+    ]
+    out = []
+    for num, name, shape, (moved, flops) in rows:
+        ms, by = bound_ms(moved, flops, peaks)
+        out.append({"kernel": num, "function": name, "shape": shape, "mbytes": moved / 1e6,
+                    "gflop": flops / 1e9, "bound_ms": ms, "bound_by": by})
+    return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    card = argv[0] if argv else "NVIDIA H100 80GB HBM3"
+    peaks = card_peaks(card)
+    print(f"# {card}: {peaks[0] / 1e12:.0f} TFLOP/s bf16 dense, {peaks[1] / 1e12:.2f} TB/s")
+    for r in tpu_kernel_bounds(peaks):
+        print(f"{r['kernel']}  {r['function']:48s} {str(r['shape']):22s} {r['mbytes']:9.1f} MB "
+              f"{r['gflop']:8.2f} GFLOP  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

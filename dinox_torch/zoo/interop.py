@@ -15,6 +15,10 @@ trees) across into the port unchanged in value:
     scale_embed.mlp.0.* / .2.* / .3.*      scale_embed.fc1 / fc2 / norm
     norm.{weight,bias}                     norm.{scale,bias}
 
+and, for the DINO student (:func:`jax_to_torch_student`), ``backbone.*``
+for the tree's ``backbone`` and ``head.{0,2}.{weight,bias}`` for
+``head.{fc1,fc2}.{kernel,bias}``.
+
 Also the legacy-key migration (nn.MultiheadAttention / nn.Sequential names
 -> timm-style) so pre-migration checkpoints load.
 """
@@ -181,4 +185,37 @@ def jax_to_torch_backbone(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
                     sd[f"blocks.{i}.{mod}.{s}.bias"] = f32(node[mod][s]["bias"])
         else:
             raise KeyError(f"unrecognized param subtree: {name}")
+    return sd
+
+
+def torch_to_jax_student(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """DinoStudentTeacher state dict (backbone.* + head.*) -> JAX-package tree
+    {'backbone': ..., 'head': ...} (numpy leaves)."""
+    if needs_migration(sd):
+        sd = migrate_state_dict(sd)
+    bb = {k[len("backbone."):]: v for k, v in sd.items() if k.startswith("backbone.")}
+    head_sd = {k[len("head."):]: v for k, v in sd.items() if k.startswith("head.")}
+    out: dict[str, Any] = {"backbone": torch_to_jax_backbone(bb)}
+    head: dict[str, Any] = {}
+    for k, raw in head_sd.items():
+        v = _np(raw)
+        idx, leaf = k.split(".")
+        sub = {"0": "fc1", "2": "fc2"}[idx]
+        head.setdefault(sub, {})["kernel" if leaf == "weight" else "bias"] = (
+            v.T if leaf == "weight" else v)
+    if head:
+        out["head"] = head
+    return out
+
+
+def jax_to_torch_student(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Inverse of :func:`torch_to_jax_student`: the port's DinoStudentTeacher
+    state dict (float32, C-contiguous numpy values)."""
+    sd = {f"backbone.{k}": v for k, v in jax_to_torch_backbone(params["backbone"]).items()}
+    if "head" in params:
+        for sub, idx in (("fc1", "0"), ("fc2", "2")):
+            sd[f"head.{idx}.weight"] = np.ascontiguousarray(
+                np.asarray(params["head"][sub]["kernel"], np.float32).T)
+            sd[f"head.{idx}.bias"] = np.ascontiguousarray(
+                np.asarray(params["head"][sub]["bias"], np.float32))
     return sd

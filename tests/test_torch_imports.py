@@ -1,7 +1,8 @@
-"""The port stands alone: no module of dinox_torch, and not chip_smoke.py,
-imports JAX, flax, optax or the JAX package, and nothing on the serving path
-imports PIL, safetensors or huggingface_hub (the GPU machine has none of
-them). Checked on the source with an AST scan."""
+"""The port stands alone: no module of dinox_torch (the training step, the
+augmentation, the bench and the FLOP counts included), and not
+chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
+the serving or training path imports PIL, safetensors or huggingface_hub
+(the GPU machine has none of them). Checked on the source with an AST scan."""
 
 import ast
 from pathlib import Path
@@ -33,4 +34,8 @@ def test_no_forbidden_imports(path):
 def test_scan_sees_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert {"dinox_torch/serve.py", "dinox_torch/zoo/hub.py", "dinox_torch/models/vit.py",
-            "dinox_torch/ops/flash_attention.py", "chip_smoke.py"} <= names
+            "dinox_torch/ops/flash_attention.py", "chip_smoke.py",
+            "dinox_torch/train/step.py", "dinox_torch/train/state.py",
+            "dinox_torch/train/losses.py", "dinox_torch/train/schedule.py",
+            "dinox_torch/ops/augment.py", "dinox_torch/bench.py",
+            "dinox_torch/utils/flops.py"} <= names
