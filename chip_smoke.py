@@ -24,10 +24,24 @@ Run from the repository root:  python3 chip_smoke.py
 8. Trains: dinox_torch.bench.bench_train_step(96), 5 warm-up and 20 timed
    steps and one profiled step, every loss finite, and exact launch counts
    per step (forward 2 x depth, each backward kernel depth).
-9. Times each kernel, its plain version, the PyTorch library call that
-   computes the same function, and its bound (the forward at the serving
-   shape, the backward at the training shape), and prints them as one JSON
-   line.
+9. (Run right after 3.) Holds the fused attention half-block kernel (TPU
+   kernel 6) against its plain version at five shapes (y, qkv and attn
+   within 0.05), the fused MLP forward (kernel 7) at three within 0.02, and
+   the fused MLP backward's three launches (kernel 8) at the same three
+   within 2e-2 of each output's largest value, with equal bits on two runs.
+10. Serves the same hub dir with EmbedService(fused_attn=True) and the same
+   requests: CLS cosine >= 0.999 against the unfused service, kernel 6
+   launches == depth x forwards, packed attention forward launches == 0.
+11. Runs one micro-step of full ViT-S (bs 8, exact GELU) with fused_attn and
+   fused_mlp through the kernels against the unfused exact-GELU model, from
+   one state and the same views (loss within 1e-2 relative, gradient cosine
+   >= 0.99), then trains that fused configuration at bs96 (3 warm-up, 10
+   timed and one profiled step) with exact launch counts per step.
+12. Times each kernel, its plain version, the PyTorch library call that
+   computes the same function (none for kernels 6-8), the port's own unfused
+   composition of each fused half-block, and its bound (kernel 1 at the
+   serving shape, the rest at the training shape, kernel 6 at both), and
+   prints them as one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -49,16 +63,24 @@ import torch
 import torch.nn.functional as F
 
 from dinox_torch import serve
-from dinox_torch.bench import bench_train_step
+from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
 from dinox_torch.models.config import MODEL_CONFIGS
+from dinox_torch.models.vit import Attention, LayerNorm, Mlp
 from dinox_torch.ops import _build
 from dinox_torch.ops import flash_attention as fa
+from dinox_torch.ops import fused_attn_block as fab
+from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
 from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import micro_loss_and_grads
 from dinox_torch.utils.flops import card_peaks, mfu
-from dinox_torch.utils.roofline import bound_ms
+from dinox_torch.utils.roofline import (
+    bound_ms,
+    fused_attn_work,
+    fused_mlp_bwd_work,
+    fused_mlp_fwd_work,
+)
 from dinox_torch.zoo.encode import _preprocess
 from dinox_torch.zoo.hub import LoadedModel, export_hub_checkpoint
 
@@ -81,11 +103,28 @@ BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 1
 TRAINING_SHAPE = (192, 261, 3 * 384, 6)
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
 VIT_G_SHAPE = (2, 261, 3 * 1408, 16)
+# The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
+# --check); (b, n, dim, heads): the check shape, the serving bucket 32, the
+# training shape, ViT-G (hd 88) and hd 32.
+FUSED_TOL = 0.05
+FUSED_ATTN_SHAPES = [(8, 261, 384, 6), (32, 261, 384, 6), (192, 261, 384, 6),
+                     (2, 261, 1408, 16), (4, 261, 512, 16)]
+FUSED_SERVING_SHAPE, FUSED_TRAINING_SHAPE = FUSED_ATTN_SHAPES[1], FUSED_ATTN_SHAPES[2]
+# Kernels 7 and 8: (rows, C) with hidden 4C: 8 and 192 views of ViT-S, and
+# ViT-G width on 2 views.
+MLP_TOL = 0.02
+MLP_SHAPES = [(8 * 261, 384), (192 * 261, 384), (2 * 261, 1408)]
+FUSED_WARMUP, FUSED_STEPS = 3, 10
 # Device kernels grouped by what they do, by substrings of their names.
 KERNEL_KINDS = [
     ("attention forward kernel", ("packed_attention_fwd",)),
     ("attention backward dq kernel", ("packed_attention_bwd_dq",)),
     ("attention backward dkv kernel", ("packed_attention_bwd_dkv",)),
+    ("fused attention half-block kernel", ("fused_attn_block",)),
+    ("fused MLP forward kernel", ("fused_mlp_fwd",)),
+    ("fused MLP backward rows kernel", ("fused_mlp_bwd_rows",)),
+    ("fused MLP backward weights kernel", ("fused_mlp_bwd_weights",)),
+    ("fused MLP backward reduce kernel", ("fused_mlp_bwd_reduce",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("optimizer/EMA (multi-tensor)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -99,16 +138,27 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# Each wrapper that launches a kernel, by the name its count goes under.
+COUNTERS = {
+    "packed_attention": fa.flash_attention_packed,
+    "packed_attention_bwd_dq": fa.packed_attention_bwd_dq,
+    "packed_attention_bwd_dkv": fa.packed_attention_bwd_dkv,
+    "fused_attn_block": fab.fused_attn_block,
+    "fused_mlp_fwd": fm.fused_mlp_forward,
+    "fused_mlp_bwd_rows": fm.fused_mlp_bwd_rows,
+    "fused_mlp_bwd_weights": fm.fused_mlp_bwd_weights,
+    "fused_mlp_bwd_reduce": fm.fused_mlp_bwd_reduce,
+}
+MLP_BWD_PARTS = ("fused_mlp_bwd_rows", "fused_mlp_bwd_weights", "fused_mlp_bwd_reduce")
+
+
 def launch_counts() -> dict[str, int]:
-    return {"packed_attention": fa.flash_attention_packed.launches,
-            "packed_attention_bwd_dq": fa.packed_attention_bwd_dq.launches,
-            "packed_attention_bwd_dkv": fa.packed_attention_bwd_dkv.launches}
+    return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    fa.flash_attention_packed.launches = 0
-    fa.packed_attention_bwd_dq.launches = 0
-    fa.packed_attention_bwd_dkv.launches = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
 
 
 def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -189,13 +239,11 @@ def check_backward() -> tuple[float, float]:
     return worst_dq, worst_dkv
 
 
-def check_step_against_plain() -> None:
-    """One micro-step of full ViT-S scale-aware at bs 8 through the kernels
-    and with plain attention, from one state (scale pathway made live) and
-    the same views."""
-    model = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
-    cfgs = [TrainConfig(model=model.replace(attn_impl=impl), batch_size=8, koleo_weight=0.1)
-            for impl in ("pallas", "xla")]
+def check_step(models: tuple, label: str) -> None:
+    """One micro-step of full ViT-S scale-aware at bs 8 for each of the two
+    model configs *models* (the one under test first), from one state (scale
+    pathway made live) and the same views."""
+    cfgs = [TrainConfig(model=m, batch_size=8, koleo_weight=0.1) for m in models]
     states = [create_train_state(cfg, seed=SEED) for cfg in cfgs]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     with torch.no_grad():  # a live scale pathway: the fresh output layer is zero
@@ -222,32 +270,20 @@ def check_step_against_plain() -> None:
             continue
         cos[name] = F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
     worst = min(cos, key=cos.get)
-    print(f"training micro-step, ViT-S scale-aware bs8, kernels vs plain attention: loss "
+    print(f"training micro-step, ViT-S scale-aware bs8, {label}: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}, tol 1e-2); gradient cosine min "
           f"{cos[worst]:.6f} ({worst}) over {len(cos)} tensors, {len(skipped)} skipped as zero "
           f"in both {skipped}", flush=True)
     if not np.isfinite(loss_k) or rel > 1e-2 or cos[worst] < 0.99:
-        fail("the training step through the kernels disagrees with plain attention")
+        fail(f"the training step ({label}) disagrees")
 
 
-def train(card: str) -> dict[str, int]:
-    """The training path at full width: bench_train_step(96), tanh arm, with
-    exact launch counts. Returns the counts of this run."""
-    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
-    reset_launch_counts()
-    res = bench_train_step(TRAIN_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, profile=True)
-    counts = launch_counts()
-    steps = TRAIN_WARMUP + TRAIN_STEPS + 1
-    want = {"packed_attention": steps * 2 * cfg.depth, "packed_attention_bwd_dq": steps * cfg.depth,
-            "packed_attention_bwd_dkv": steps * cfg.depth}
-    print(f"trained {steps} steps of ViT-S scale-aware bs{TRAIN_BATCH}: losses "
-          f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, all finite; launches {counts} "
-          f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
-    if counts != want:
-        fail("the training step did not run every attention through the kernels exactly once")
+def report_training(res: dict, cfg, card: str, steps: int) -> None:
+    """Rate, MFU, busy share and device time by kind of a bench_train_step
+    result with a profile."""
     peak = card_peaks(card)[0]
     print(f"training rate: {res['slices_per_s']:.2f} slices/s ({res['step_ms']:.2f} ms per step "
-          f"of {TRAIN_BATCH} slices, host clock over {TRAIN_STEPS} steps); MFU "
+          f"of {TRAIN_BATCH} slices, host clock over {steps} steps); MFU "
           f"{mfu(res['slices_per_s'], cfg, peak):.4f} against {peak / 1e12:.0f} TFLOP/s bf16",
           flush=True)
     prof = res["profile"]
@@ -264,6 +300,51 @@ def train(card: str) -> dict[str, int]:
         acc[1] += item["count"]
     print("  by kind: " + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in
                                     sorted(by_kind.items(), key=lambda kv: -kv[1][0])), flush=True)
+
+
+def train(card: str) -> dict[str, int]:
+    """The training path at full width: bench_train_step(96), tanh arm, with
+    exact launch counts. Returns the counts of this run."""
+    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    reset_launch_counts()
+    res = bench_train_step(TRAIN_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, profile=True)
+    counts = launch_counts()
+    steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(packed_attention=steps * 2 * cfg.depth, packed_attention_bwd_dq=steps * cfg.depth,
+                packed_attention_bwd_dkv=steps * cfg.depth)
+    print(f"trained {steps} steps of ViT-S scale-aware bs{TRAIN_BATCH}: losses "
+          f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, all finite; launches {counts} "
+          f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
+    if counts != want:
+        fail("the training step did not run every attention through the kernels exactly once")
+    report_training(res, cfg, card, TRAIN_STEPS)
+    return counts
+
+
+def train_fused(card: str) -> dict[str, int]:
+    """The fused half-block configuration at full width: ViT-S scale-aware
+    bs96, exact GELU, fused_attn and fused_mlp, with exact launch counts per
+    step. Returns the counts of this run."""
+    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True, gelu_approx=False,
+                                             fused_attn=True, fused_mlp=True)
+    reset_launch_counts()
+    res = bench_train_step(TRAIN_BATCH, steps=FUSED_STEPS, warmup=FUSED_WARMUP, gelu_approx=False,
+                           fused_attn=True, fused_mlp=True, profile=True)
+    counts = launch_counts()
+    steps = FUSED_WARMUP + FUSED_STEPS + 1
+    d = cfg.depth
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(fused_attn_block=steps * 2 * d, fused_mlp_fwd=steps * 2 * d,
+                packed_attention_bwd_dq=steps * d, packed_attention_bwd_dkv=steps * d,
+                **{part: steps * d for part in MLP_BWD_PARTS})
+    print(f"trained {steps} steps of ViT-S scale-aware bs{TRAIN_BATCH}, exact GELU, fused_attn + "
+          f"fused_mlp: losses {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, all finite; "
+          f"launches {counts} (want {want}: kernels 6 and 7 2 x depth, each of kernel 8's three "
+          f"and dq/dkv depth, packed forward 0, per step)", flush=True)
+    if counts != want:
+        fail("the fused training step did not run every half-block through the kernels exactly once")
+    report_training(res, cfg, card, FUSED_STEPS)
     return counts
 
 
@@ -322,6 +403,189 @@ def time_backward(peaks: tuple[float, float], shape: tuple[int, int, int, int] =
             "dkv": {"ms": dkv_ms, "plain_ms": plain_ms, "bound": dkv_bound, "library_ms": lib_ms}}
 
 
+def check_fused_attn() -> float:
+    """Kernel 6 against its plain version at FUSED_ATTN_SHAPES, all three
+    outputs (y, qkv, attn), inputs at the JAX check's scales. Returns the
+    worst error."""
+    worst = 0.0
+    for i, (b, n, dim, heads) in enumerate(FUSED_ATTN_SHAPES):
+        args = fused_block_inputs(b, n, dim, torch.device("cuda"), seed=SEED + 10 + i)
+        got = fab.fused_attn_block_forward(*args, heads)
+        torch.cuda.synchronize()
+        want = fab.fused_attn_block_reference(*args, heads)
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        print(f"kernel check fused_attn_block b={b} n={n} dim={dim} heads={heads}: max_abs_err "
+              f"y {errs[0]:.3e}, qkv {errs[1]:.3e}, attn {errs[2]:.3e} (tol {FUSED_TOL})",
+              flush=True)
+        if not np.isfinite(errs).all() or max(errs) >= FUSED_TOL:
+            fail(f"fused_attn_block disagrees with its plain version at {(b, n, dim, heads)}")
+        worst = max(worst, *errs)
+    return worst
+
+
+def check_fused_mlp() -> tuple[float, float]:
+    """Kernel 7 against the plain forward and kernel 8's three launches
+    against the plain backward at MLP_SHAPES; the backward twice, for equal
+    bits. Returns the worst forward error and the worst backward error."""
+    worst_f = worst_b = 0.0
+    names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for i, (rows, c) in enumerate(MLP_SHAPES):
+        args, dy = fused_mlp_inputs(rows, c, torch.device("cuda"), SEED + 20 + i)
+        got = fm.fused_mlp_forward(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - fm.fused_mlp_forward_reference(*args).float()).abs().max().item()
+        runs = [fm.fused_mlp_backward(*args[:6], dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        want = fm.fused_mlp_backward_reference(*args[:6], dy)
+        abs_errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(runs[0], want)]
+        rels = [e / w.float().abs().max().item() for e, w in zip(abs_errs, want)]
+        worst_rel = int(np.argmax(rels))
+        print(f"kernel check fused_mlp rows={rows} C={c} hidden={4 * c}: forward max_abs_err "
+              f"{err:.3e} (tol {MLP_TOL}); backward max_abs_err/max|want| worst "
+              f"{rels[worst_rel]:.3e} ({names[worst_rel]}; tol {BWD_REL}), max_abs_err "
+              f"{max(abs_errs):.3e}; two runs bit-equal: {same}", flush=True)
+        if not np.isfinite(err) or err >= MLP_TOL:
+            fail(f"fused_mlp forward disagrees with its plain version at {(rows, c)}")
+        if not np.isfinite(rels).all() or max(rels) >= BWD_REL or not same:
+            fail(f"fused_mlp backward disagrees with its plain version at {(rows, c)}")
+        worst_f, worst_b = max(worst_f, err), max(worst_b, *abs_errs)
+    return worst_f, worst_b
+
+
+def time_fused(peaks: tuple[float, float]) -> dict[str, dict]:
+    """Times of kernels 6, 7 and 8, each beside its plain version, its bound
+    and the port's own unfused composition of the same half-block (LayerNorm,
+    Linear layers, kernel 1 or GELU, residual; for kernel 8 autograd through
+    it). Kernel 6 at the training and serving shapes, 7 and 8 at the
+    training rows."""
+    out: dict[str, dict] = {}
+    dev = torch.device("cuda")
+    for label, (b, n, dim, heads) in (("training", FUSED_TRAINING_SHAPE),
+                                      ("serving", FUSED_SERVING_SHAPE)):
+        args = fused_block_inputs(b, n, dim, dev, seed=SEED + 30)
+        norm, attn = LayerNorm(dim, torch.bfloat16).to(dev), Attention(dim, heads, "pallas").to(dev)
+        with torch.no_grad():
+            for p, v in zip((norm.weight, norm.bias, attn.qkv.weight, attn.qkv.bias,
+                             attn.proj.weight, attn.proj.bias), args[1:]):
+                p.copy_(v.float())
+            kern = median_ms(lambda: fab.fused_attn_block_forward(*args, heads))
+            plain = median_ms(lambda: fab.fused_attn_block_reference(*args, heads), iters=10)
+            unfused = median_ms(lambda: args[0] + attn(norm(args[0])))
+        moved, flops = fused_attn_work(b, n, dim, heads)
+        bound = bound_ms(moved, flops, peaks)
+        print(f"fused_attn_block at {(b, n, dim, heads)} ({label}): {kern:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), plain "
+              f"{plain:.4f} ms, unfused composition {unfused:.4f} ms", flush=True)
+        out[f"attn_{label}"] = {"ms": kern, "plain_ms": plain, "unfused_ms": unfused, "bound": bound,
+                                "shape": [b, n, dim, heads]}
+    # Kernel 6's composed backward at the training shape (plain products around
+    # the dq/dkv pair), and its three products with an f32 result from bf16
+    # operands (dwproj, dwqkv, dln) through torch.mm(out_dtype=float32).
+    b, n, dim, heads = FUSED_TRAINING_SHAPE
+    leaves = [a.detach().requires_grad_(True) for a in fused_block_inputs(b, n, dim, dev, SEED + 32)]
+    y = fab.fused_attn_block(*leaves, heads)
+    dy = torch.randn_like(y)
+    bwd = median_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), iters=10)
+    flat = [t.detach().reshape(-1, t.shape[-1]) for t in (dy, y, leaves[0])]
+    qkv = torch.randn((b * n, 3 * dim), device=dev).to(torch.bfloat16)
+    f32 = torch.float32
+    mm = median_ms(lambda: (torch.mm(flat[0].t(), flat[1], out_dtype=f32),
+                            torch.mm(qkv.t(), flat[2], out_dtype=f32),
+                            torch.mm(qkv, leaves[3].detach(), out_dtype=f32)))
+    print(f"fused_attn_block backward (composed) at {FUSED_TRAINING_SHAPE}: {bwd:.4f} ms, of which "
+          f"the three f32-result products (torch.mm(out_dtype=float32)) {mm:.4f} ms", flush=True)
+    out["attn_training"].update(backward_ms=bwd, f32_products_ms=mm)
+
+    rows, c = MLP_SHAPES[1]
+    hidden = 4 * c
+    args, dy = fused_mlp_inputs(rows, c, dev, SEED + 31)
+    norm, mlp = LayerNorm(c, torch.bfloat16).to(dev), Mlp(c, hidden, gelu_approx=False).to(dev)
+    with torch.no_grad():
+        for p, v in zip((norm.weight, norm.bias, mlp.fc1.weight, mlp.fc1.bias, mlp.fc2.weight,
+                         mlp.fc2.bias), args[1:]):
+            p.copy_(v.float())
+        kern = median_ms(lambda: fm.fused_mlp_forward(*args))
+        plain = median_ms(lambda: fm.fused_mlp_forward_reference(*args), iters=10)
+        unfused = median_ms(lambda: args[0] + mlp(norm(args[0])))
+    moved, flops = fused_mlp_fwd_work(rows, c, hidden)
+    bound = bound_ms(moved, flops, peaks)
+    print(f"fused_mlp forward at ({rows}, {c}, {hidden}): {kern:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, unfused composition "
+          f"{unfused:.4f} ms", flush=True)
+    out["mlp_fwd"] = {"ms": kern, "plain_ms": plain, "unfused_ms": unfused, "bound": bound}
+
+    total = median_ms(lambda: fm.fused_mlp_backward(*args[:6], dy))
+    # Each of the three launches alone, on the workspace of one backward.
+    blocks = -(-rows // fm.row_block(c))
+    chunks = min(fm.WEIGHT_CHUNKS, blocks)
+    ws = dict(dx=torch.empty_like(args[0]), lnb=torch.empty_like(args[0]),
+              ab=torch.empty((rows, hidden), dtype=torch.bfloat16, device=dev),
+              dhb=torch.empty((rows, hidden), dtype=torch.bfloat16, device=dev),
+              part=torch.empty((blocks, 3 * c + hidden), device=dev),
+              wpart=torch.empty((chunks, 2 * c * hidden), device=dev),
+              out=torch.empty(2 * c * hidden + 3 * c + hidden, device=dev))
+    parts = {
+        "fused_mlp_bwd_rows": median_ms(lambda: fm.fused_mlp_bwd_rows(
+            *args[:6], dy, ws["dx"], ws["lnb"], ws["ab"], ws["dhb"], ws["part"])),
+        "fused_mlp_bwd_weights": median_ms(lambda: fm.fused_mlp_bwd_weights(
+            dy, ws["ab"], ws["dhb"], ws["lnb"], ws["wpart"], chunks)),
+        "fused_mlp_bwd_reduce": median_ms(lambda: fm.fused_mlp_bwd_reduce(
+            ws["wpart"], ws["part"], ws["out"], c, hidden, chunks)),
+    }
+    plain = median_ms(lambda: fm.fused_mlp_backward_reference(*args[:6], dy), iters=5, warmup=2)
+    xr = args[0].detach().requires_grad_(True)
+    params = [xr] + list(norm.parameters()) + list(mlp.parameters())
+    y = xr + mlp(norm(xr))
+    unfused = median_ms(lambda: torch.autograd.grad(y, params, dy, retain_graph=True))
+    moved, flops = fused_mlp_bwd_work(rows, c, hidden)
+    bound = bound_ms(moved, flops, peaks)
+    print(f"fused_mlp backward at ({rows}, {c}, {hidden}): {total:.4f} ms for three launches ("
+          + ", ".join(f"{k.rsplit('_', 1)[1]} {v:.4f}" for k, v in parts.items())
+          + f"), bound {bound[0]:.4f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP), plain "
+          f"{plain:.4f} ms, unfused composition (autograd) {unfused:.4f} ms", flush=True)
+    out["mlp_bwd"] = {"ms": total, "plain_ms": plain, "unfused_ms": unfused, "bound": bound,
+                      "parts": parts}
+    return out
+
+
+def serve_fused(service, reqs: dict, timed: list, served: dict, depth: int) -> None:
+    """The same hub dir and requests through *service*, an
+    EmbedService(fused_attn=True): CLS cosine against the unfused service's
+    answers, exact launch counts."""
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        service.warmup()
+        reset_launch_counts()
+        forwards0 = service.stats["forwards"]
+        cos = []
+        for n, (_, _, body) in reqs.items():
+            got = check_embeddings(post(url, body), n, 384)
+            cos.append(np.sum(got * served[n], axis=1).min())
+        t0 = time.perf_counter()
+        for (_, _, body), want in zip(timed, served["timed"]):
+            got = check_embeddings(post(url, body), 32, 384)
+            cos.append(np.sum(got * want, axis=1).min())
+        served_s = time.perf_counter() - t0
+        counts = launch_counts()
+        forwards = service.stats["forwards"] - forwards0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    print(f"fused serving (EmbedService(fused_attn=True)): {forwards} forwards; launches "
+          f"fused_attn_block {counts['fused_attn_block']} (depth x forwards = {depth * forwards}), "
+          f"packed_attention {counts['packed_attention']} (want 0); CLS cosine against the "
+          f"unfused service min {min(cos):.6f}; served img/s at bucket 32: {96 / served_s:.2f}",
+          flush=True)
+    if forwards != 7 or counts["fused_attn_block"] != depth * forwards or counts["packed_attention"]:
+        fail("the fused serving path did not run every block through kernel 6 exactly once")
+    if min(cos) < 0.999:
+        fail("the fused service's embeddings disagree with the unfused service's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -341,6 +605,8 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     max_err = check_kernels()
+    fused_attn_err = check_fused_attn()
+    mlp_err = check_fused_mlp()
 
     # -- the serving path ----------------------------------------------------
     cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
@@ -352,6 +618,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         export_hub_checkpoint(model, tmp, use_safetensors=True)
         service = serve.EmbedService(tmp, BUCKETS, device="cuda")
+        fused_service = serve.EmbedService(tmp, BUCKETS, device="cuda", fused_attn=True)
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(service))
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
@@ -377,9 +644,10 @@ def main() -> int:
         served = {n: check_embeddings(post(url, body), n, 384) for n, (_, _, body) in reqs.items()}
         t0 = time.perf_counter()
         embed_ms = 0.0  # the server's own time in EmbedService.embed
+        served["timed"] = []
         for _, _, body in timed:
             resp = post(url, body)
-            check_embeddings(resp, 32, 384)
+            served["timed"].append(check_embeddings(resp, 32, 384))
             embed_ms += resp["latency_ms"]
         served_s = time.perf_counter() - t0
         launches = flash_attention_packed.launches
@@ -436,6 +704,7 @@ def main() -> int:
         httpd.shutdown()
         httpd.server_close()
         service.close()
+    serve_fused(fused_service, reqs, timed, served, cfg.depth)
 
     # -- kernel timing at the serving shape ----------------------------------
     b, n, three_dim, heads = SERVING_SHAPE
@@ -459,10 +728,18 @@ def main() -> int:
 
     # -- the training path ---------------------------------------------------
     bwd_err = check_backward()
-    check_step_against_plain()
+    vit_s = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    check_step((vit_s, vit_s.replace(attn_impl="xla")), "kernels vs plain attention")
     train_counts = train(card)
     bwd = time_backward(peaks)
     time_backward(peaks, VIT_G_SHAPE)  # TPU kernel 3's shape
+
+    # -- the fused half-block training path ----------------------------------
+    exact = vit_s.replace(gelu_approx=False)
+    check_step((exact.replace(fused_attn=True, fused_mlp=True), exact),
+               "fused half-blocks (kernels 6-8) vs unfused, exact GELU")
+    fused_counts = train_fused(card)
+    fused = time_fused(peaks)
 
     kernels = [{
         "name": "packed_attention",
@@ -495,6 +772,38 @@ def main() -> int:
             "bound_by": bwd[part]["bound"][1],
             "library_ms": bwd[part]["library_ms"],
         })
+    fused_entries = (
+        ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
+         fused["attn_training"], fused_counts["fused_attn_block"]),
+        ("fused_mlp_fwd", "fused_mlp.cu", "fused_mlp.py:65", mlp_err[0], fused["mlp_fwd"],
+         fused_counts["fused_mlp_fwd"]),
+        ("fused_mlp_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:76", mlp_err[1], fused["mlp_bwd"],
+         min(fused_counts[p] for p in MLP_BWD_PARTS)),
+    )
+    for name, src, replaces, err, t, count in fused_entries:
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"dinox_torch/ops/csrc/{src}",
+            "replaces": f"dinox_tpu/ops/{replaces}",
+            "launches": count,
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": None,  # no single PyTorch call computes the fused half-block
+            "unfused_ms": t["unfused_ms"],
+        }
+        if name == "fused_attn_block":
+            serving = fused["attn_serving"]
+            entry["serving"] = {"shape": serving["shape"], "ms": serving["ms"],
+                                "bound_ms": serving["bound"][0], "unfused_ms": serving["unfused_ms"]}
+            entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
+        if name == "fused_mlp_bwd":  # three launches: ms is their sum, parts each one's
+            entry["parts"] = {p: {"launches": fused_counts[p], "ms": t["parts"][p]}
+                              for p in MLP_BWD_PARTS}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

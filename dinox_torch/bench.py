@@ -8,11 +8,14 @@ scale-aware, ``attn_impl="pallas"``, batch 96 (192 views), KoLeo 0.1,
 warmup 100 and horizon 5000 steps, synthetic uint16 512x512 canvases
 (``integers(25000, 41000)``) and spacings (``uniform(0.4, 3.0)``) from seed
 0, 5 warm-up steps and 20 timed steps; the loss must stay finite. It runs
-the tanh-GELU arm (the default) and the exact-GELU arm and prints slices/s,
-MFU against the card's dense bf16 peak, and the card's name and power
-limit. ``--check`` holds the packed attention forward and backward kernels
-against the plain versions at (8, 261, 384, 6) and (2, 261, 1408, 16):
-forward within 0.02, backward within 0.25 (bf16).
+the JAX bench's dense arms: exact GELU, tanh GELU (the default) and tanh
+with the fused attention half-block (``tanh+fused_attn``), and prints
+slices/s, MFU against the card's dense bf16 peak, and the card's name and
+power limit. ``--check`` holds the packed attention forward and backward
+kernels against the plain versions at (8, 261, 384, 6) and
+(2, 261, 1408, 16), forward within 0.02, backward within 0.25 (bf16), and
+the fused attention half-block against its plain version at
+(8, 261, 384, 6) with the JAX check's input scales, within 0.05.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from dinox_torch.models.config import MODEL_CONFIGS
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.ops.fused_attn_block import fused_attn_block, fused_attn_block_reference
 from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import build_train_step
 from dinox_torch.utils.flops import card_peaks, mfu
@@ -43,23 +47,28 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bench_config(batch_size: int, gelu_approx: bool = True) -> TrainConfig:
+def bench_config(batch_size: int, gelu_approx: bool = True, fused_attn: bool = False,
+                 fused_mlp: bool = False) -> TrainConfig:
     return TrainConfig(
         model=MODEL_CONFIGS["vit-small"].replace(scale_aware=True, attn_impl="pallas",
-                                                 gelu_approx=gelu_approx),
+                                                 gelu_approx=gelu_approx, fused_attn=fused_attn,
+                                                 fused_mlp=fused_mlp),
         batch_size=batch_size, koleo_weight=0.1, warmup_steps=100, max_steps=5000)
 
 
 def bench_train_step(batch_size: int, steps: int = 20, warmup: int = 5, gelu_approx: bool = True,
+                     fused_attn: bool = False, fused_mlp: bool = False,
                      device: torch.device | str | None = None, profile: bool = False
                      ) -> dict[str, Any]:
     """Time *steps* training steps after *warmup*, on the card unless
-    *device* is ``"cpu"``. Returns ``slices_per_s``, ``step_ms`` and every
+    *device* is ``"cpu"``; *fused_attn* and *fused_mlp* set the model's
+    switches (the fused MLP applies with exact GELU only). Returns
+    ``slices_per_s``, ``step_ms`` and every
     step's ``losses``; with *profile*, one more step runs under
     ``torch.profiler`` and ``profile`` holds its device time, wall time and
     device time by kernel. Raises if a loss is not finite."""
     dev = resolve_device(device)
-    cfg = bench_config(batch_size, gelu_approx)
+    cfg = bench_config(batch_size, gelu_approx, fused_attn, fused_mlp)
     state = create_train_state(cfg, seed=0, device=dev)
     step_fn = build_train_step(cfg, device=dev)
     rng = np.random.default_rng(0)
@@ -130,7 +139,62 @@ def check_kernels(device: torch.device | str | None = None) -> bool:
         ok &= good
         print(f"# packed b={b} dim={dim} h={heads}: fwd_err={fwd_err:.3e} bwd_err={bwd_err:.3e} "
               f"{'OK' if good else 'FAIL'}", file=sys.stderr)
+    fb_err = fused_block_error(dev)
+    good = fb_err < 0.05
+    ok &= good
+    print(f"# fused half-block err={fb_err:.3e} {'OK' if good else 'FAIL'}", file=sys.stderr)
     return ok
+
+
+def fused_block_inputs(b: int, n: int, dim: int, device: torch.device, seed: int = 0):
+    """Inputs of the fused attention half-block at the JAX check's scales:
+    x ~ 0.5 N(0, 1) in bf16, gamma ~ 1 + 0.1 N, beta ~ 0.1 N, weights ~ 0.05 N
+    at dim 384 (cast to bf16, ``(out, in)`` layout), biases ~ 0.02 N, f32.
+    At other widths the weights scale by sqrt(384 / dim), so qkv and y keep
+    the check's magnitudes and one bf16 step stays below its tolerance."""
+    rng = np.random.default_rng(seed)
+    ws = 0.05 * (384 / dim) ** 0.5
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(a.astype(np.float32), device=device).to(dtype)
+
+    return (t(rng.normal(size=(b, n, dim)) * 0.5, torch.bfloat16),
+            t(1 + 0.1 * rng.normal(size=(dim,))), t(0.1 * rng.normal(size=(dim,))),
+            t(rng.normal(size=(3 * dim, dim)) * ws, torch.bfloat16),
+            t(0.02 * rng.normal(size=(3 * dim,))),
+            t(rng.normal(size=(dim, dim)) * ws, torch.bfloat16),
+            t(0.02 * rng.normal(size=(dim,))))
+
+
+def fused_mlp_inputs(rows: int, c: int, device: torch.device, seed: int = 0
+                     ) -> tuple[tuple, torch.Tensor]:
+    """Arguments of the fused MLP (x, gamma, beta, w1, b1, w2, b2; hidden 4c,
+    weights in the ``(out, in)`` layout) and an output gradient: x ~ 0.5 N,
+    gamma ~ 1 + 0.1 N, beta and biases ~ 0.1 N, weights ~ N(0, 0.25 / fan_in)
+    (so |y| stays below 4, where one bf16 step is below the forward's 0.02
+    tolerance), dy ~ N(0, 1); bf16 rows and weights, f32 vectors."""
+    hidden = 4 * c
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*shape, std=1.0, mean=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=device) * std + mean).to(dtype)
+
+    bf16 = torch.bfloat16
+    args = (rn(rows, c, std=0.5, dtype=bf16), rn(c, std=0.1, mean=1.0), rn(c, std=0.1),
+            rn(hidden, c, std=0.5 / c ** 0.5, dtype=bf16), rn(hidden, std=0.1),
+            rn(c, hidden, std=0.5 / hidden ** 0.5, dtype=bf16), rn(c, std=0.1))
+    return args, rn(rows, c, dtype=bf16)
+
+
+def fused_block_error(device: torch.device, shape: tuple[int, int, int, int] = (8, 261, 384, 6)
+                      ) -> float:
+    """Largest error of the fused half-block's y against its plain version."""
+    b, n, dim, heads = shape
+    args = fused_block_inputs(b, n, dim, device)
+    with torch.no_grad():
+        got = fused_attn_block(*args, heads)
+    want = fused_attn_block_reference(*args, heads)[0]
+    return (got.float() - want.float()).abs().max().item()
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -145,8 +209,9 @@ def main(argv: list[str] | None = None) -> int:
     peak = card_peaks(card)[0]
     mcfg = bench_config(96).model
     rates = {}
-    for name, approx in (("tanh", True), ("exact", False)):
-        res = bench_train_step(96, gelu_approx=approx)
+    for name, approx, fused in (("exact", False, False), ("tanh", True, False),
+                                ("tanh+fused_attn", True, True)):
+        res = bench_train_step(96, gelu_approx=approx, fused_attn=fused)
         rates[name] = res["slices_per_s"]
         print(f"# gelu={name} batch=96: {rates[name]:.1f} slices/s, {res['step_ms']:.1f} ms/step",
               file=sys.stderr)
@@ -156,6 +221,7 @@ def main(argv: list[str] | None = None) -> int:
         "gelu": "tanh", "mfu": mfu(rates["tanh"], mcfg, peak),
         "exact_gelu_slices_per_sec": rates["exact"],
         "exact_gelu_mfu": mfu(rates["exact"], mcfg.replace(gelu_approx=False), peak),
+        "fused_attn_slices_per_sec": rates["tanh+fused_attn"],
         "peak_flops": peak, "card": card_line(),
     }))
     return 0

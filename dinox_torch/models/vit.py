@@ -20,6 +20,13 @@ rounding points:
   patches before the registers are appended, and skipped without spacing.
 * Attention is the packed-QKV kernel (``ops.flash_attention``) for
   ``attn_impl="pallas"``, its plain version for ``"xla"``.
+* ``fused_attn`` (with ``attn_impl="pallas"``, no LoRA) routes each block's
+  attention half through the fused half-block (``ops.fused_attn_block``,
+  kernel 6); ``fused_mlp`` (exact GELU, no LoRA) routes its MLP half through
+  ``ops.fused_mlp`` (kernels 7 and 8). Both keep the JAX package's fused
+  rounding points (f32 biases and residual, one rounding each), read the
+  same parameters, and leave ``state_dict()`` unchanged; a tanh-GELU config
+  keeps the unfused MLP, as in the JAX package.
 * ``use_grad_checkpoint`` recomputes each block in the backward
   (``torch.utils.checkpoint``), only in training mode, like the JAX
   package's ``nn.remat`` under ``train=True``.
@@ -40,6 +47,8 @@ from torch import nn
 
 from dinox_torch.models.config import ModelConfig
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.ops.fused_attn_block import fused_attn_block
+from dinox_torch.ops.fused_mlp import fused_mlp_block
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ATTN_IMPLS = ("pallas", "xla")
@@ -130,8 +139,21 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
+def takes_fused_attn(cfg: ModelConfig) -> bool:
+    """The JAX package's condition for the fused attention half-block (the
+    mesh condition does not apply on one card)."""
+    return cfg.fused_attn and not cfg.lora_rank and cfg.attn_impl == "pallas"
+
+
+def takes_fused_mlp(cfg: ModelConfig) -> bool:
+    """The fused MLP half-block computes exact GELU only: a tanh config keeps
+    the unfused MLP, as LoRA does."""
+    return cfg.fused_mlp and not cfg.lora_rank and not cfg.gelu_approx
+
+
 class TransformerBlock(nn.Module):
-    """Pre-norm block; the residual stream stays in the compute dtype."""
+    """Pre-norm block; the residual stream stays in the compute dtype. The
+    fused paths read the same submodules' parameters."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
@@ -139,9 +161,20 @@ class TransformerBlock(nn.Module):
         self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl)
         self.norm2 = LayerNorm(cfg.dim, dtype)
         self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx)
+        self.fused_attn = takes_fused_attn(cfg)
+        self.fused_mlp = takes_fused_mlp(cfg)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+        if self.fused_attn:
+            a = self.attn
+            x = fused_attn_block(x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
+                                 a.proj.weight, a.proj.bias, a.heads)
+        else:
+            x = x + self.attn(self.norm1(x))
+        if self.fused_mlp:
+            m = self.mlp
+            return fused_mlp_block(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
+                                   m.fc2.weight, m.fc2.bias)
         return x + self.mlp(self.norm2(x))
 
 
@@ -162,8 +195,7 @@ class ScaleEmbedding(nn.Module):
 
 
 def _reject_unported(cfg: ModelConfig) -> None:
-    for field, unported in (("lora_rank", cfg.lora_rank > 0), ("moe_experts", cfg.moe_experts > 0),
-                            ("fused_mlp", cfg.fused_mlp), ("fused_attn", cfg.fused_attn)):
+    for field, unported in (("lora_rank", cfg.lora_rank > 0), ("moe_experts", cfg.moe_experts > 0)):
         if unported:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch yet")
     if cfg.dtype not in DTYPES:
@@ -244,6 +276,14 @@ class PatchViT(nn.Module):
         for blk in self.blocks:
             x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
         return x
+
+    def enable_fused_attn(self) -> None:
+        """Switch every block to the fused attention half-block from now on:
+        a run-time kernel choice on the loaded weights (serving's
+        ``fused_attn``), the same parameters and outputs."""
+        self.cfg = self.cfg.replace(fused_attn=True)
+        for blk in self.blocks:
+            blk.fused_attn = takes_fused_attn(self.cfg)
 
     def run_final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x.float())

@@ -2,10 +2,12 @@
 
 Every ``ops/csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds). Libraries land in ``build/dinox_torch_kernels/`` at the repository
-root (listed in ``.gitignore``), named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused. A failed build
-raises with nvcc's stderr.
+seconds), and :func:`launch` calls its entry points on PyTorch's current
+stream. Libraries land in ``build/dinox_torch_kernels/`` at the repository
+root (listed in ``.gitignore``), named by a hash of the source, every
+``csrc/*.cuh`` header and the flags, so an edited source or shared header
+rebuilds and an unchanged one is reused. A failed build raises with nvcc's
+stderr.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dinox_torch_kernels"
@@ -37,8 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(src: Path) -> tuple[Path, Path, subprocess.Popen] | None:
@@ -99,3 +106,33 @@ def build_log(name: str) -> str:
     """nvcc's (ptxas -v) report from the build of ``csrc/<name>.cu``."""
     log = _target(CSRC / f"{name}.cu").with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def check_operands(operands: dict, device: torch.device, align: int, kernel: str) -> None:
+    """Raise unless every ``name: (tensor, shape, dtype)`` of *operands* has
+    that shape and dtype, lies on *device*, is contiguous and starts on an
+    *align*-byte boundary: what a kernel taking raw pointers needs."""
+    for name, (t, shape, dtype) in operands.items():
+        if t.dtype != dtype:
+            raise TypeError(f"the {kernel} kernel takes {dtype} {name}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def launch(name: str, symbol: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call the C entry point *symbol* of ``csrc/<name>.cu`` with *args* and
+    the current CUDA stream of *device* (the last of *argtypes*). Every entry
+    point returns its launch's cudaError_t; raise unless it is 0."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {err}")

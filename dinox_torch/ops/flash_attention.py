@@ -49,13 +49,6 @@ _SIGNATURES = {
 }
 
 
-def _kernel(lib_name: str, symbol: str):
-    fn = getattr(_build.load(lib_name), symbol)
-    fn.argtypes = _SIGNATURES[symbol]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _split_heads(t: torch.Tensor, parts: int, heads: int) -> tuple[torch.Tensor, ...]:
     """(B, N, parts*heads*hd) -> *parts* tensors (B, heads, N, hd)."""
     b, n, width = t.shape
@@ -130,15 +123,6 @@ def _check_operand(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
 def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     if qkv.device.type == "cpu":
         return packed_attention_reference(qkv, heads)
@@ -149,10 +133,9 @@ def _forward(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     out = torch.empty((b, n, three_dim // 3), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
-    fn = _kernel("packed_attention", "dinox_packed_attention_fwd_bf16")
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, hd, 1.0 / hd ** 0.5, _stream(qkv))
-    _raise_on(err, "packed attention")
+    symbol = "dinox_packed_attention_fwd_bf16"
+    _build.launch("packed_attention", symbol, _SIGNATURES[symbol], qkv.device, qkv.data_ptr(),
+                  out.data_ptr(), b, n, heads, hd, 1.0 / hd ** 0.5)
     flash_attention_packed.launches += 1
     return out
 
@@ -164,11 +147,10 @@ def packed_attention_bwd_dq(qkv: torch.Tensor, do: torch.Tensor, heads: int,
     Operands are checked by :func:`packed_attention_backward`."""
     b, n, three_dim = qkv.shape
     hd = three_dim // 3 // heads
-    fn = _kernel("packed_attention_bwd", "dinox_packed_attention_bwd_dq_bf16")
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, n, heads,
-                 hd, 1.0 / hd ** 0.5, _stream(qkv))
-    _raise_on(err, "packed attention dq")
+    symbol = "dinox_packed_attention_bwd_dq_bf16"
+    _build.launch("packed_attention_bwd", symbol, _SIGNATURES[symbol], qkv.device, qkv.data_ptr(),
+                  do.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, n, heads, hd,
+                  1.0 / hd ** 0.5)
     packed_attention_bwd_dq.launches += 1
 
 
@@ -178,11 +160,10 @@ def packed_attention_bwd_dkv(qkv: torch.Tensor, do: torch.Tensor, heads: int,
     dk and dv slots of *dqkv*."""
     b, n, three_dim = qkv.shape
     hd = three_dim // 3 // heads
-    fn = _kernel("packed_attention_bwd", "dinox_packed_attention_bwd_dkv_bf16")
-    with torch.cuda.device(qkv.device):
-        err = fn(qkv.data_ptr(), do.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), b, n, heads,
-                 hd, 1.0 / hd ** 0.5, _stream(qkv))
-    _raise_on(err, "packed attention dkv")
+    symbol = "dinox_packed_attention_bwd_dkv_bf16"
+    _build.launch("packed_attention_bwd", symbol, _SIGNATURES[symbol], qkv.device, qkv.data_ptr(),
+                  do.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), b, n, heads, hd,
+                  1.0 / hd ** 0.5)
     packed_attention_bwd_dkv.launches += 1
 
 

@@ -14,7 +14,11 @@ API:
 
 Usage:
     python -m dinox_torch.serve --backbone path/to/hub_dir --port 8000 \
-        --buckets 1 8 32 [--device cuda]
+        --buckets 1 8 32 [--fused-attn] [--device cuda]
+
+``--fused-attn`` runs every block's attention half through the fused
+half-block kernel (ops.fused_attn_block) on the same weights: a run-time
+kernel choice, the same embeddings within bf16 rounding.
 """
 
 from __future__ import annotations
@@ -61,10 +65,11 @@ class EmbedService:
     def __init__(self, backbone: str, buckets: list[int],
                  batch_window_ms: float = 6.0, fused_attn: bool = False,
                  device: str | torch.device | None = None):
-        if fused_attn:
-            raise NotImplementedError(
-                "fused_attn (the fused attention half-block kernel) is not ported to dinox_torch yet")
         self.model = load_model(backbone, device=device)
+        if fused_attn:
+            # Runtime-only kernel choice on the loaded weights: serving has no
+            # backward, so the fused half-block's forward applies alone.
+            self.model.enable_fused_attn()
         self.buckets = sorted(set(buckets))
         self._window = batch_window_ms / 1000.0
         self.stats = {"requests": 0, "forwards": 0, "images": 0}
@@ -240,17 +245,21 @@ def main(argv=None) -> int:
                    help="cross-request coalescing window: after the first "
                         "queued request, wait up to this long to fuse "
                         "concurrent requests into one forward (0 disables)")
+    p.add_argument("--fused-attn", action="store_true",
+                   help="run each block's attention half through the fused half-block "
+                        "kernel (same weights and outputs)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     args = p.parse_args(argv)
 
     service = EmbedService(args.backbone, args.buckets,
-                           batch_window_ms=args.batch_window_ms, device=args.device)
+                           batch_window_ms=args.batch_window_ms, fused_attn=args.fused_attn,
+                           device=args.device)
     service.warmup()
     server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
     print(f"serving on http://{args.host}:{server.server_address[1]} "
           f"(dim={service.model.dim}, scale_aware={service.model.scale_aware}, "
-          f"device={service.model.device})", flush=True)
+          f"fused_attn={service.model.cfg.fused_attn}, device={service.model.device})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

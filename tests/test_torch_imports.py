@@ -38,4 +38,5 @@ def test_scan_sees_the_package():
             "dinox_torch/train/step.py", "dinox_torch/train/state.py",
             "dinox_torch/train/losses.py", "dinox_torch/train/schedule.py",
             "dinox_torch/ops/augment.py", "dinox_torch/bench.py",
-            "dinox_torch/utils/flops.py"} <= names
+            "dinox_torch/utils/flops.py", "dinox_torch/ops/fused_attn_block.py",
+            "dinox_torch/ops/fused_mlp.py"} <= names

@@ -187,6 +187,20 @@ def test_close_never_strands_a_request(hub_dir):
         assert o == (1, 64) or (isinstance(o, str) and "shut down" in o), o
 
 
-def test_fused_attn_not_ported_yet(hub_dir):
-    with pytest.raises(NotImplementedError):
-        serve.EmbedService(str(hub_dir), buckets=[2], fused_attn=True, device="cpu")
+def test_fused_attn_service_matches_unfused(server, hub_dir):
+    """EmbedService(fused_attn=True) switches every block to the fused
+    half-block on the loaded weights and serves the same embeddings (bf16
+    compute: within 1e-3 of cosine 1)."""
+    _, service = server
+    fused = serve.EmbedService(str(hub_dir), buckets=[2, 4], fused_attn=True, device="cpu")
+    try:
+        assert fused.model.cfg.fused_attn and all(b.fused_attn for b in fused.model.blocks)
+        assert not any(b.fused_attn for b in service.model.blocks)
+        rng = np.random.default_rng(5)
+        imgs = [rng.uniform(-1000, 1500, (40, 40)).astype(np.float32) for _ in range(3)]
+        sps = [[0.7, 0.7, 1.5], [1.0, 1.0, 3.0], [2.0, 2.0, 5.0]]
+        got, want = fused.embed(imgs, sps), service.embed(imgs, sps)
+    finally:
+        fused.close()
+    assert got.shape == want.shape == (3, 64)
+    assert np.sum(got * want, axis=-1).min() >= 1 - 1e-3

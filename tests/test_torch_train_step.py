@@ -149,7 +149,20 @@ def test_two_steps_match_jax(accum, warm):
 
 
 def test_first_micro_step_gradients_match_jax():
-    jcfg, tcfg = _configs()
+    _micro_step_gradients_match(*_configs())
+
+
+def test_fused_micro_step_gradients_match_jax():
+    """The fused half-block configuration (fused_attn + fused_mlp, exact GELU,
+    attn_impl="pallas" on both sides: the JAX step runs its Pallas kernels in
+    interpret mode)."""
+    fused = dict(MODEL, attn_impl="pallas", gelu_approx=False, fused_attn=True, fused_mlp=True)
+    jcfg = jax_state.TrainConfig(model=jax_config.ModelConfig(**fused), **TRAIN)
+    tcfg = TrainConfig(model=ModelConfig(**fused), **TRAIN)
+    _micro_step_gradients_match(jcfg, tcfg)
+
+
+def _micro_step_gradients_match(jcfg, tcfg):
     jstate = _jax_start(jcfg)
     tstate = state_from_jax(tcfg, _as_tree(jstate), device="cpu")
     px, sp = _batch(1, seed=3)

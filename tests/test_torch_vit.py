@@ -87,7 +87,7 @@ def test_embed_keeps_compute_dtype_and_token_order():
 
 
 def test_unported_options_raise():
-    for kw in (dict(lora_rank=4), dict(moe_experts=2), dict(fused_mlp=True), dict(fused_attn=True)):
+    for kw in (dict(lora_rank=4), dict(moe_experts=2)):
         with pytest.raises(NotImplementedError):
             PatchViT(torch_config.ModelConfig(**dict(BASE, **kw)))
 
