@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of dinox_torch's serving and training paths (one CUDA
-card).
+"""On-card smoke test of dinox_torch's serving and training paths and its
+head-major attention path (one CUDA card).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -37,11 +37,23 @@ Run from the repository root:  python3 chip_smoke.py
    one state and the same views (loss within 1e-2 relative, gradient cosine
    >= 0.99), then trains that fused configuration at bs96 (3 warm-up, 10
    timed and one profiled step) with exact launch counts per step.
-12. Times each kernel, its plain version, the PyTorch library call that
+12. (Run right after 6.) Holds the head-major pair against its plain
+   versions at six shapes (the JAX check's unpacked shape, the bring-up
+   shape (8, 8, 1024, 64), the training shape, hd 32, hd 88 and N=1500):
+   kernel 4 within 0.02, each of kernel 5's dq, dk, dv within 2e-2 of its
+   largest value and bit-equal to kernel 2 on the same data laid out packed;
+   sdpa(impl="pallas") launches kernel 4 once per call.
+13. Drives the head-major path with exact launch counts: the bring-up gate
+   dinox_torch.validate_attention.main([]) at its defaults (PASS, 11
+   launches of kernel 4), then a gradient of sum(out^2) through
+   sdpa(impl="pallas") (kernel 4 once, each of kernel 5's launches once)
+   against autograd through the plain version, within 2e-2 of the largest
+   gradient.
+14. Times each kernel, its plain version, the PyTorch library call that
    computes the same function (none for kernels 6-8), the port's own unfused
    composition of each fused half-block, and its bound (kernel 1 at the
-   serving shape, the rest at the training shape, kernel 6 at both), and
-   prints them as one JSON line.
+   serving shape, kernel 4 at the bring-up shape, the rest at the training
+   shape, kernels 4 and 6 at both), and prints them as one JSON line.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -62,10 +74,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dinox_torch import serve
+from dinox_torch import serve, validate_attention
 from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
 from dinox_torch.models.config import MODEL_CONFIGS
-from dinox_torch.models.vit import Attention, LayerNorm, Mlp
+from dinox_torch.models.vit import Attention, LayerNorm, Mlp, sdpa
 from dinox_torch.ops import _build
 from dinox_torch.ops import flash_attention as fa
 from dinox_torch.ops import fused_attn_block as fab
@@ -76,6 +88,8 @@ from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import micro_loss_and_grads
 from dinox_torch.utils.flops import card_peaks, mfu
 from dinox_torch.utils.roofline import (
+    attention_bwd_work,
+    attention_fwd_work,
     bound_ms,
     fused_attn_work,
     fused_mlp_bwd_work,
@@ -115,6 +129,13 @@ FUSED_SERVING_SHAPE, FUSED_TRAINING_SHAPE = FUSED_ATTN_SHAPES[1], FUSED_ATTN_SHA
 MLP_TOL = 0.02
 MLP_SHAPES = [(8 * 261, 384), (192 * 261, 384), (2 * 261, 1408)]
 FUSED_WARMUP, FUSED_STEPS = 3, 10
+# The head-major pair (kernels 4 and 5), (b, heads, n, hd): the JAX check's
+# unpacked shape, the bring-up gate's, the ViT-S training shape, the MAE
+# decoder's hd 32, ViT-G's hd 88, and an N past the TPU kernel's 1024.
+MHA_SHAPES = [(4, 6, 261, 64), (8, 8, 1024, 64), (192, 6, 261, 64), (2, 16, 257, 32),
+              (2, 16, 261, 88), (1, 2, 1500, 64)]
+MHA_CHECK_SHAPE, MHA_VALIDATE_SHAPE, MHA_TRAINING_SHAPE = MHA_SHAPES[:3]
+VALIDATE_LAUNCHES = 11  # the gate's first call and 10 steady calls
 # Device kernels grouped by what they do, by substrings of their names.
 KERNEL_KINDS = [
     ("attention forward kernel", ("packed_attention_fwd",)),
@@ -148,6 +169,9 @@ COUNTERS = {
     "fused_mlp_bwd_rows": fm.fused_mlp_bwd_rows,
     "fused_mlp_bwd_weights": fm.fused_mlp_bwd_weights,
     "fused_mlp_bwd_reduce": fm.fused_mlp_bwd_reduce,
+    "mha_attention": fa.flash_attention,
+    "mha_attention_bwd_dq": fa.mha_attention_bwd_dq,
+    "mha_attention_bwd_dkv": fa.mha_attention_bwd_dkv,
 }
 MLP_BWD_PARTS = ("fused_mlp_bwd_rows", "fused_mlp_bwd_weights", "fused_mlp_bwd_reduce")
 
@@ -237,6 +261,136 @@ def check_backward() -> tuple[float, float]:
             fail(f"the backward pair disagrees with its plain version at {(b, n, three_dim, heads)}")
         worst_dq, worst_dkv = max(worst_dq, err_dq), max(worst_dkv, err_dkv)
     return worst_dq, worst_dkv
+
+
+def mha_inputs(shape: tuple[int, ...], count: int, gen: torch.Generator) -> list[torch.Tensor]:
+    return [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(count)]
+
+
+def to_tokens(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, hd) -> token-major (B, N, H*hd)."""
+    b, h, n, hd = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * hd)
+
+
+def check_mha() -> tuple[float, float]:
+    """Kernel 4 against its plain version and kernel 5 against the plain
+    backward at MHA_SHAPES, kernel 5 bit-equal to kernel 2 on the same data
+    laid out packed, and sdpa(impl="pallas") one launch of kernel 4 per call.
+    Returns the worst forward and backward errors."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    worst_f = worst_b = 0.0
+    for shape in MHA_SHAPES:
+        heads = shape[1]
+        q, k, v, do = mha_inputs(shape, 4, g)
+        out = fa.flash_attention(q, k, v)
+        grads = fa.mha_attention_backward(q, k, v, do)
+        packed = fa.packed_attention_backward(torch.cat([to_tokens(t) for t in (q, k, v)], -1),
+                                              to_tokens(do).contiguous(), heads)
+        torch.cuda.synchronize()
+        err = (out.float() - fa.mha_attention_reference(q, k, v).float()).abs().max().item()
+        want = fa.mha_attention_backward_reference(q, k, v, do)
+        abs_errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(grads, want)]
+        rels = [e / w.float().abs().max().item() for e, w in zip(abs_errs, want)]
+        same = torch.equal(packed, torch.cat([to_tokens(t) for t in grads], -1))
+        print(f"kernel check mha_attention {shape}: forward max_abs_err {err:.3e} (tol {TOL}); "
+              f"backward max_abs_err/max|want| dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv "
+              f"{rels[2]:.3e} (tol {BWD_REL}), max_abs_err {max(abs_errs):.3e}; bit-equal to the "
+              f"packed pair (kernel 2): {same}", flush=True)
+        if not np.isfinite(err) or err >= TOL:
+            fail(f"mha_attention disagrees with its plain version at {shape}")
+        if not np.isfinite(rels).all() or max(rels) >= BWD_REL:
+            fail(f"the head-major backward disagrees with its plain version at {shape}")
+        if not same:
+            fail(f"the head-major backward and the packed one give different bits at {shape}")
+        worst_f, worst_b = max(worst_f, err), max(worst_b, *abs_errs)
+    q, k, v = mha_inputs(MHA_CHECK_SHAPE, 3, g)
+    before = fa.flash_attention.launches
+    outs = [sdpa(q, k, v, impl="pallas") for _ in range(3)]
+    launched = fa.flash_attention.launches - before
+    print(f"sdpa(impl='pallas') on the card: {launched} launches of mha_attention in 3 calls",
+          flush=True)
+    if launched != 3 or not all(torch.equal(o, outs[0]) for o in outs):
+        fail("sdpa(impl='pallas') did not launch kernel 4 exactly once per call")
+    return worst_f, worst_b
+
+
+def mha_path() -> dict[str, int]:
+    """This slice's path as its users call it, with the counts set to 0 just
+    before and read just after: the bring-up gate at its defaults
+    (VALIDATE_LAUNCHES of kernel 4), then a gradient of sum(out^2) through
+    sdpa(impl="pallas") at the unpacked check shape (kernel 4 once, each of
+    kernel 5's launches once), held against autograd through the plain
+    version within BWD_REL of each largest gradient. Returns the counts."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    leaves = [t.requires_grad_(True) for t in mha_inputs(MHA_CHECK_SHAPE, 3, g)]
+    reset_launch_counts()
+    rc = validate_attention.main([])
+    (sdpa(*leaves, impl="pallas").float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    (fa.mha_attention_reference(*plain).float() ** 2).sum().backward()
+    rels = [(t.grad.float() - p.grad.float()).abs().max().item() / p.grad.float().abs().max().item()
+            for t, p in zip(leaves, plain)]
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(mha_attention=VALIDATE_LAUNCHES + 1, mha_attention_bwd_dq=1, mha_attention_bwd_dkv=1)
+    print(f"head-major path: validate_attention.main([]) returned {rc}; gradient of sum(out^2) "
+          f"through sdpa(impl='pallas') at {MHA_CHECK_SHAPE} against the plain autograd: "
+          f"max_abs_err/max|want| dq {rels[0]:.3e}, dk {rels[1]:.3e}, dv {rels[2]:.3e} (tol "
+          f"{BWD_REL}); launches {counts} (want {want})", flush=True)
+    if rc != 0:
+        fail("the bring-up gate (dinox_torch.validate_attention) failed")
+    if not np.isfinite(rels).all() or max(rels) >= BWD_REL:
+        fail("the gradient through sdpa(impl='pallas') disagrees with the plain autograd")
+    if counts != want:
+        fail("the head-major path did not run through kernels 4 and 5 as counted")
+    return counts
+
+
+def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
+    """Kernel 4 at the bring-up and training shapes and kernel 5 at the
+    training shape, each beside its plain version, its bound and the library
+    call on the same (B, H, N, hd) tensors (F.scaled_dot_product_attention,
+    forward and backward: a yardstick the port never calls)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    out: dict[str, dict] = {}
+    for label, shape in (("validate", MHA_VALIDATE_SHAPE), ("training", MHA_TRAINING_SHAPE)):
+        b, h, n, hd = shape
+        q, k, v = mha_inputs(shape, 3, g)
+        kern = median_ms(lambda: fa.flash_attention(q, k, v))
+        plain = median_ms(lambda: fa.mha_attention_reference(q, k, v), iters=10)
+        lib = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        moved, flops = attention_fwd_work(b, n, h * hd, h)
+        bound = bound_ms(moved, flops, peaks)
+        print(f"mha_attention forward at {shape} ({label}): {kern:.4f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, "
+              f"SDPA {lib:.4f} ms", flush=True)
+        out[label] = {"shape": list(shape), "ms": kern, "plain_ms": plain, "library_ms": lib,
+                      "bound": bound}
+    b, h, n, hd = MHA_TRAINING_SHAPE
+    q, k, v, do = mha_inputs(MHA_TRAINING_SHAPE, 4, g)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((b * h, 3, n), dtype=torch.float32, device="cuda")
+    fa.mha_attention_bwd_dq(q, k, v, do, dq, stats)
+    parts = {"mha_attention_bwd_dq": median_ms(lambda: fa.mha_attention_bwd_dq(q, k, v, do, dq, stats)),
+             "mha_attention_bwd_dkv": median_ms(
+                 lambda: fa.mha_attention_bwd_dkv(q, k, v, do, stats, dk, dv))}
+    pair = median_ms(lambda: fa.mha_attention_backward(q, k, v, do))
+    plain = median_ms(lambda: fa.mha_attention_backward_reference(q, k, v, do), iters=10)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves)
+    lib = median_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    moved, flops = attention_bwd_work(b, n, h * hd, h)
+    bound = bound_ms(moved, flops, peaks)
+    print(f"mha_attention backward at {MHA_TRAINING_SHAPE}: pair {pair:.4f} ms (dq "
+          f"{parts['mha_attention_bwd_dq']:.4f} + dkv {parts['mha_attention_bwd_dkv']:.4f}), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain "
+          f"{plain:.4f} ms; SDPA backward {lib:.4f} ms", flush=True)
+    out["backward"] = {"shape": list(MHA_TRAINING_SHAPE), "ms": pair, "plain_ms": plain,
+                       "library_ms": lib, "bound": bound, "parts": parts}
+    return out
 
 
 def check_step(models: tuple, label: str) -> None:
@@ -728,6 +882,11 @@ def main() -> int:
 
     # -- the training path ---------------------------------------------------
     bwd_err = check_backward()
+
+    # -- the head-major pair (kernels 4 and 5) and its path --------------------
+    mha_err = check_mha()
+    mha_counts = mha_path()
+
     vit_s = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     check_step((vit_s, vit_s.replace(attn_impl="xla")), "kernels vs plain attention")
     train_counts = train(card)
@@ -740,6 +899,7 @@ def main() -> int:
                "fused half-blocks (kernels 6-8) vs unfused, exact GELU")
     fused_counts = train_fused(card)
     fused = time_fused(peaks)
+    mha = time_mha(peaks)
 
     kernels = [{
         "name": "packed_attention",
@@ -804,6 +964,44 @@ def main() -> int:
             entry["parts"] = {p: {"launches": fused_counts[p], "ms": t["parts"][p]}
                               for p in MLP_BWD_PARTS}
         kernels.append(entry)
+    # Kernel 4 at the bring-up shape, the one its path runs at; the training
+    # shape beside it.
+    fwd, train_fwd = mha["validate"], mha["training"]
+    kernels.append({
+        "name": "mha_attention",
+        "route": "cuda",
+        "source": "dinox_torch/ops/csrc/mha_attention.cu",
+        "replaces": "dinox_tpu/ops/flash_attention.py:32",
+        "launches": mha_counts["mha_attention"],
+        "max_abs_err": mha_err[0],
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound"][0],
+        "bound_by": fwd["bound"][1],
+        "library_ms": fwd["library_ms"],
+        "shape": fwd["shape"],
+        "training": {"shape": train_fwd["shape"], "ms": train_fwd["ms"],
+                     "plain_ms": train_fwd["plain_ms"], "bound_ms": train_fwd["bound"][0],
+                     "library_ms": train_fwd["library_ms"]},
+    })
+    # Kernel 5: two launches; ms is the pair's, parts each one's.
+    bwd5 = mha["backward"]
+    kernels.append({
+        "name": "mha_attention_bwd",
+        "route": "cuda",
+        "source": "dinox_torch/ops/csrc/mha_attention_bwd.cu",
+        "replaces": "dinox_tpu/ops/flash_attention.py:107",
+        "launches": min(mha_counts[p] for p in bwd5["parts"]),
+        "max_abs_err": mha_err[1],
+        "ms": bwd5["ms"],
+        "plain_ms": bwd5["plain_ms"],
+        "bound_ms": bwd5["bound"][0],
+        "bound_by": bwd5["bound"][1],
+        "library_ms": bwd5["library_ms"],
+        "shape": bwd5["shape"],
+        "parts": {p.rsplit("_", 1)[1]: {"launches": mha_counts[p], "ms": ms}
+                  for p, ms in bwd5["parts"].items()},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -13,9 +13,11 @@ with the fused attention half-block (``tanh+fused_attn``), and prints
 slices/s, MFU against the card's dense bf16 peak, and the card's name and
 power limit. ``--check`` holds the packed attention forward and backward
 kernels against the plain versions at (8, 261, 384, 6) and
-(2, 261, 1408, 16), forward within 0.02, backward within 0.25 (bf16), and
-the fused attention half-block against its plain version at
-(8, 261, 384, 6) with the JAX check's input scales, within 0.05.
+(2, 261, 1408, 16), forward within 0.02, backward within 0.25 (bf16), the
+head-major forward (kernel 4, the JAX check's "unpacked" line) at
+(4, 6, 261, 64) within 0.02, and the fused attention half-block against its
+plain version at (8, 261, 384, 6) with the JAX check's input scales, within
+0.05; all fold into one ``kernel_check`` JSON line.
 """
 
 from __future__ import annotations
@@ -30,7 +32,12 @@ import numpy as np
 import torch
 
 from dinox_torch.models.config import MODEL_CONFIGS
-from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_packed,
+    mha_attention_reference,
+    packed_attention_reference,
+)
 from dinox_torch.ops.fused_attn_block import fused_attn_block, fused_attn_block_reference
 from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import build_train_step
@@ -38,6 +45,7 @@ from dinox_torch.utils.flops import card_peaks, mfu
 from dinox_torch.utils.platform import resolve_device
 
 CHECK_SHAPES = ((8, 261, 384, 6), (2, 261, 1408, 16))
+UNPACKED_SHAPE = (4, 6, 261, 64)  # (b, heads, n, hd)
 
 
 def card_line() -> str:
@@ -118,9 +126,11 @@ def _profile_step(step_fn, state, pixels, spacing, sync, losses, dev) -> dict[st
 
 
 def check_kernels(device: torch.device | str | None = None) -> bool:
-    """The packed attention kernels against the plain versions on the card:
-    forward error and the error of the gradient of sum(out^2), which on the
-    plain side is torch's autograd through the plain forward."""
+    """The attention kernels against the plain versions on the card: for the
+    packed pair, forward error and the error of the gradient of sum(out^2),
+    which on the plain side is torch's autograd through the plain forward;
+    for the head-major kernel, forward error; for the fused half-block, the
+    error of y."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(0)
     ok = True
@@ -139,6 +149,13 @@ def check_kernels(device: torch.device | str | None = None) -> bool:
         ok &= good
         print(f"# packed b={b} dim={dim} h={heads}: fwd_err={fwd_err:.3e} bwd_err={bwd_err:.3e} "
               f"{'OK' if good else 'FAIL'}", file=sys.stderr)
+    q, k, v = (torch.randn(UNPACKED_SHAPE, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    f_err = (flash_attention(q, k, v).float() - mha_attention_reference(q, k, v).float()
+             ).abs().max().item()
+    good = f_err < 0.02
+    ok &= good
+    print(f"# unpacked fwd_err={f_err:.3e} {'OK' if good else 'FAIL'}", file=sys.stderr)
     fb_err = fused_block_error(dev)
     good = fb_err < 0.05
     ok &= good

@@ -2,9 +2,10 @@
 
 The same fields, defaults and presets as ``dinox_tpu.models.config``, so a
 checkpoint's ``config.json`` has one schema in both packages. ``attn_impl``
-keeps its values: ``"pallas"`` selects the hand-written packed attention
-kernel for a CUDA tensor (its plain version for a CPU tensor), ``"xla"`` the
-plain version everywhere.
+keeps its values and meanings: ``"pallas"`` selects the hand-written packed
+attention kernel for a CUDA tensor (its plain version, with the kernel's
+rounding points, for a CPU tensor), ``"xla"`` the JAX package's plain
+``sdpa_xla`` on head-major q, k, v everywhere (``models.vit.sdpa_xla``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class ModelConfig:
     num_registers: int = 4
     scale_aware: bool = False
     use_grad_checkpoint: bool = False
-    attn_impl: str = "pallas"  # "pallas" (kernel on CUDA) | "xla" (plain PyTorch)
+    attn_impl: str = "pallas"  # "pallas" (packed kernel on CUDA) | "xla" (sdpa_xla, plain PyTorch)
     fused_mlp: bool = False
     fused_attn: bool = False
     sequence_parallel: bool = False

@@ -18,8 +18,14 @@ rounding points:
   JAX package's VALID strided conv.
 * Token order [CLS, patches, registers]; the scale token is added to CLS and
   patches before the registers are appended, and skipped without spacing.
-* Attention is the packed-QKV kernel (``ops.flash_attention``) for
-  ``attn_impl="pallas"``, its plain version for ``"xla"``.
+* Attention is the packed-QKV kernel (``ops.flash_attention``, kernel 1)
+  for ``attn_impl="pallas"`` (its plain version for a CPU tensor). ``"xla"``
+  is the JAX package's ``sdpa_xla`` on head-major q, k, v: logits in f32
+  with the scale applied to them, softmax normalised in f32, P rounded to
+  the compute dtype before PV. :func:`sdpa` dispatches head-major attention
+  as the JAX package's does: ``impl="pallas"`` on a CUDA tensor takes the
+  head-major kernel (``ops.flash_attention.flash_attention``, kernel 4),
+  everything else ``sdpa_xla``.
 * ``fused_attn`` (with ``attn_impl="pallas"``, no LoRA) routes each block's
   attention half through the fused half-block (``ops.fused_attn_block``,
   kernel 6); ``fused_mlp`` (exact GELU, no LoRA) routes its MLP half through
@@ -46,7 +52,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from dinox_torch.models.config import ModelConfig
-from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.ops.flash_attention import flash_attention, flash_attention_packed
+from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
 from dinox_torch.ops.fused_mlp import fused_mlp_block
 
@@ -56,6 +63,14 @@ ATTN_IMPLS = ("pallas", "xla")
 # flax's truncated_normal(stddev) truncates at +-2 and rescales so the
 # truncated distribution has the requested stddev.
 _TRUNC_STD = 0.87962566103423978
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "xla") -> torch.Tensor:
+    """Attention dispatch, ``(B, H, N, hd)`` each: the head-major kernel for
+    ``impl="pallas"`` on a CUDA tensor, :func:`sdpa_xla` otherwise."""
+    if impl == "pallas" and q.device.type == "cuda":
+        return flash_attention(q, k, v)
+    return sdpa_xla(q, k, v)
 
 
 class Linear(nn.Module):
@@ -124,7 +139,9 @@ class Attention(nn.Module):
         if self.attn_impl == "pallas":
             out = flash_attention_packed(qkv, self.heads)
         else:
-            out = packed_attention_reference(qkv, self.heads)
+            b, n, c = x.shape
+            q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+            out = sdpa(q, k, v, impl="xla").transpose(1, 2).reshape(b, n, c)
         return self.proj(out)
 
 

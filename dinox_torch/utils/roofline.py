@@ -7,8 +7,10 @@ peak rate. Each input is counted read once and each output written once.
 prints the bound of each of the JAX package's TPU kernels (the functions
 that reach ``pl.pallas_call``) at the shapes of the ViT-S training step
 (2 x 96 views, N=261, dim 384, 6 heads), kernel 3 at the ViT-G shape it is
-taken for (2 views, dim 1408, 16 heads), on the named card's published
-peaks (H100 SXM by default).
+taken for (2 views, dim 1408, 16 heads), and kernel 4 also at the
+bring-up shape of ``python -m dinox_torch.validate_attention`` (batch 8,
+8 heads, N=1024, head dim 64), on the named card's published peaks (H100
+SXM by default).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import sys
 from dinox_torch.utils.flops import card_peaks
 
 BF16, F32 = 2, 4
+# (b, n, dim, heads) of the head-major kernel's bring-up gate: q, k, v of
+# (8, 8, 1024, 64).
+VALIDATE_SHAPE = (8, 1024, 512, 8)
 
 
 def bound_ms(moved_bytes: float, flops: float, peaks: tuple[float, float]) -> tuple[float, str]:
@@ -96,6 +101,10 @@ def main(argv: list[str] | None = None) -> int:
     for r in tpu_kernel_bounds(peaks):
         print(f"{r['kernel']}  {r['function']:48s} {str(r['shape']):22s} {r['mbytes']:9.1f} MB "
               f"{r['gflop']:8.2f} GFLOP  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    moved, flops = attention_fwd_work(*VALIDATE_SHAPE)
+    ms, by = bound_ms(moved, flops, peaks)
+    print(f"4  {'_mha_kernel at the validate shape':48s} {str(VALIDATE_SHAPE):22s} "
+          f"{moved / 1e6:9.1f} MB {flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
     return 0
 
 

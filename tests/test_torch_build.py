@@ -36,8 +36,9 @@ def test_key_follows_source_headers_and_flags(tmp_path, monkeypatch):
 def test_every_source_of_the_package_has_a_key():
     names = {src.stem for src in _build.sources()}
     assert {"packed_attention", "packed_attention_bwd", "fused_attn_block", "fused_mlp",
-            "fused_mlp_bwd"} <= names
+            "fused_mlp_bwd", "mha_attention", "mha_attention_bwd"} <= names
     assert (_build.CSRC / "attention_tile.cuh").exists()
+    assert (_build.CSRC / "attention_bwd_tile.cuh").exists()
     assert len({_build._target(src) for src in _build.sources()}) == len(names)
 
 

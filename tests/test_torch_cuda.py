@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: each hand-written kernel against
 its plain PyTorch version, the wrappers' input checks, the served forward
 through the kernel against plain attention, a training micro-step through
-the kernels against plain attention, and the fused half-block paths (kernels
-6, 7 and 8) against their plain versions and the unfused model.
+the kernels against plain attention, the fused half-block paths (kernels
+6, 7 and 8) against their plain versions and the unfused model, and the
+head-major pair (kernels 4 and 5) with the sdpa dispatch.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -16,10 +17,17 @@ import torch
 
 from dinox_torch.bench import fused_block_inputs, fused_mlp_inputs
 from dinox_torch.models.config import MODEL_CONFIGS
+from dinox_torch.models.vit import sdpa
 from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_packed,
+    mha_attention_backward,
+    mha_attention_backward_reference,
+    mha_attention_bwd_dkv,
+    mha_attention_bwd_dq,
+    mha_attention_reference,
     packed_attention_backward,
     packed_attention_backward_reference,
     packed_attention_bwd_dkv,
@@ -290,3 +298,93 @@ def test_fused_training_micro_step_matches_unfused(card):
             continue
         cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0)
         assert cos.item() >= 0.99
+
+
+# -- the head-major pair (kernels 4 and 5) -------------------------------------
+
+# (b, heads, n, hd): the JAX check's unpacked shape, the validate shape, the
+# ViT-S training shape, hd 32 (MAE decoder), hd 88 (ViT-G), an N past the TPU
+# kernel's 1024 and a short ragged N.
+MHA_SHAPES = [(4, 6, 261, 64), (8, 8, 1024, 64), (192, 6, 261, 64), (2, 16, 257, 32),
+              (2, 16, 261, 88), (1, 2, 1500, 64), (3, 2, 37, 64)]
+
+
+def _mha_inputs(card, shape, count):
+    return [torch.randn(shape, generator=card, device="cuda").to(torch.bfloat16)
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("shape", MHA_SHAPES)
+def test_mha_attention_matches_plain(card, shape):
+    q, k, v = _mha_inputs(card, shape, 3)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert (got.float() - mha_attention_reference(q, k, v).float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("shape", MHA_SHAPES)
+def test_mha_attention_backward_matches_plain(card, shape):
+    q, k, v, do = _mha_inputs(card, shape, 4)
+    before = (mha_attention_bwd_dq.launches, mha_attention_bwd_dkv.launches)
+    got = mha_attention_backward(q, k, v, do)
+    torch.cuda.synchronize()
+    assert (mha_attention_bwd_dq.launches, mha_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, mha_attention_backward_reference(q, k, v, do)):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert (g.float() - w.float()).abs().max().item() < BWD_REL * w.float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", [MHA_SHAPES[0], MHA_SHAPES[4], MHA_SHAPES[6]])
+def test_mha_backward_gives_kernel_2s_bits(card, shape):
+    """Kernel 5 and kernel 2 run one tile code: on the same data, laid out
+    head-major and packed, they give the same bits."""
+    b, h, n, hd = shape
+    q, k, v, do = _mha_inputs(card, shape, 4)
+    tokens = lambda t: t.transpose(1, 2).reshape(b, n, h * hd)  # noqa: E731
+    packed = packed_attention_backward(torch.cat([tokens(q), tokens(k), tokens(v)], -1),
+                                       tokens(do).contiguous(), h)
+    head_major = torch.cat([tokens(g) for g in mha_attention_backward(q, k, v, do)], -1)
+    assert torch.equal(packed, head_major)
+
+
+def test_mha_autograd_goes_through_the_kernels(card):
+    leaves = [t.requires_grad_(True) for t in _mha_inputs(card, (4, 6, 261, 64), 3)]
+    counts = lambda: (flash_attention.launches, mha_attention_bwd_dq.launches,  # noqa: E731
+                      mha_attention_bwd_dkv.launches)
+    before = counts()
+    (flash_attention(*leaves).float() ** 2).sum().backward()
+    assert counts() == tuple(c + 1 for c in before)
+    plain = [t.detach().clone().requires_grad_(True) for t in leaves]
+    (mha_attention_reference(*plain).float() ** 2).sum().backward()
+    for t, p in zip(leaves, plain):
+        assert t.grad.dtype == torch.bfloat16
+        err = (t.grad.float() - p.grad.float()).abs().max().item()
+        assert err < BWD_REL * p.grad.float().abs().max().item()
+
+
+def test_sdpa_pallas_launches_kernel_4_once_per_call(card):
+    q, k, v = _mha_inputs(card, (2, 6, 261, 64), 3)
+    before = flash_attention.launches
+    outs = [sdpa(q, k, v, impl="pallas") for _ in range(3)]
+    assert flash_attention.launches == before + 3
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    sdpa(q, k, v, impl="xla")
+    assert flash_attention.launches == before + 3
+
+
+def test_mha_attention_rejects_what_it_cannot_take(card):
+    q, k, v = _mha_inputs(card, (2, 6, 40, 64), 3)
+    with pytest.raises(TypeError):
+        flash_attention(q.float(), k.float(), v.float())  # float32
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())  # head dim 48
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))  # not contiguous
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :20].contiguous(), v)  # shape
+    with pytest.raises(ValueError):
+        mha_attention_backward(q, k, v, q[:1].contiguous())  # gradient shape

@@ -5,7 +5,12 @@ and the bound's choice between them."""
 import pytest
 
 from dinox_torch.utils.flops import card_peaks
-from dinox_torch.utils.roofline import bound_ms, tpu_kernel_bounds
+from dinox_torch.utils.roofline import (
+    VALIDATE_SHAPE,
+    attention_fwd_work,
+    bound_ms,
+    tpu_kernel_bounds,
+)
 
 
 def test_attention_work_at_the_training_shape():
@@ -24,3 +29,13 @@ def test_bound_takes_the_larger_time():
     peaks = (1e12, 1e9)  # 1 TFLOP/s, 1 GB/s
     assert bound_ms(1e6, 1e9, peaks) == (1.0, "bytes")
     assert bound_ms(1e5, 2e9, peaks) == (2.0, "operations")
+
+
+def test_head_major_forward_at_the_validate_shape():
+    """(8, 8, 1024, 64): q, k, v and out 33.6 MB against 17.2 GFLOP, so the
+    tensor cores bound it, at 17.4 us on the SXM peak."""
+    moved, flops = attention_fwd_work(*VALIDATE_SHAPE)
+    assert moved / 1e6 == pytest.approx(33.55, abs=0.01)
+    assert flops / 1e9 == pytest.approx(17.18, abs=0.01)
+    ms, by = bound_ms(moved, flops, card_peaks("NVIDIA H100 80GB HBM3"))
+    assert by == "operations" and ms == pytest.approx(0.01737, abs=1e-5)
