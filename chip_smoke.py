@@ -7,8 +7,10 @@ Run from the repository root:  python3 chip_smoke.py
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel under dinox_torch/ops/csrc with nvcc.
 3. Holds the packed attention forward kernel against its plain PyTorch
-   version on the card at the shapes the serving path and the JAX package's
-   kernel check use.
+   version on the card at the shapes the serving path, the training path
+   and the JAX package's kernel check use, and both forward kernels of the tile core
+   attention_fwd_sm90.cuh (kernels 1 and 4) at the ragged edges of its
+   tiling (N 1 to 1500, hd 32/64/88), each twice with equal bits.
 4. Makes a full-width ViT-S scale-aware backbone (bf16, seeded random
    weights), exports it as a hub dir, and serves it with dinox_torch.serve
    (EmbedService + HTTP on 127.0.0.1, buckets 1/8/32).
@@ -53,7 +55,10 @@ Run from the repository root:  python3 chip_smoke.py
    computes the same function (none for kernels 6-8), the port's own unfused
    composition of each fused half-block, and its bound (kernel 1 at the
    serving shape, kernel 4 at the bring-up shape, the rest at the training
-   shape, kernels 4 and 6 at both), and prints them as one JSON line.
+   shape, kernels 1, 4 and 6 at both), and prints them as one JSON line. For
+   kernels 1 and 4 it also prints what sets the time: registers, shared
+   memory per CTA and resident CTAs per SM (the occupancy API), the time of
+   back-to-back launches, and the achieved TFLOP/s and TB/s beside the bound.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -102,9 +107,10 @@ SEED = 0
 BUCKETS = [1, 8, 32]
 TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py --check)
 # (b, n, 3*dim, heads): the kernel-check shapes (ViT-S, ViT-G hd 88), the
-# serving bucket-32 shape, and the MAE decoder's hd 32.
+# serving bucket-32 shape, the MAE decoder's hd 32, and the ViT-S training
+# shape (2 x 96 views) that the unfused training step gives it.
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
-                (4, 261, 3 * 512, 16)]
+                (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6)]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
@@ -114,7 +120,7 @@ BWD_TOL, BWD_REL = 0.25, 2e-2
 # an N past the TPU kernel's 1024.
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6)]
-TRAINING_SHAPE = (192, 261, 3 * 384, 6)
+TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
 VIT_G_SHAPE = (2, 261, 3 * 1408, 16)
 # The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
@@ -135,10 +141,14 @@ FUSED_WARMUP, FUSED_STEPS = 3, 10
 MHA_SHAPES = [(4, 6, 261, 64), (8, 8, 1024, 64), (192, 6, 261, 64), (2, 16, 257, 32),
               (2, 16, 261, 88), (1, 2, 1500, 64)]
 MHA_CHECK_SHAPE, MHA_VALIDATE_SHAPE, MHA_TRAINING_SHAPE = MHA_SHAPES[:3]
+# The forward tile core's ragged edges, (n, hd), for kernels 1 and 4 at two
+# heads of batch 2: one key, the 64-row tile boundaries, a 16- and a 32-key
+# tail, and N past the TPU kernel's 1024.
+FWD_EDGES = [(1, 32), (63, 64), (64, 88), (65, 64), (90, 32), (129, 88), (1500, 64)]
 VALIDATE_LAUNCHES = 11  # the gate's first call and 10 steady calls
 # Device kernels grouped by what they do, by substrings of their names.
 KERNEL_KINDS = [
-    ("attention forward kernel", ("packed_attention_fwd",)),
+    ("attention forward kernel", ("attention_fwd_sm90",)),
     ("attention backward dq kernel", ("packed_attention_bwd_dq",)),
     ("attention backward dkv kernel", ("packed_attention_bwd_dkv",)),
     ("fused attention half-block kernel", ("fused_attn_block",)),
@@ -200,7 +210,40 @@ def median_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def check_kernels() -> float:
+def stream_ms(fn, iters: int = 50) -> float:
+    """Mean time of one call among *iters* launched back to back with no wait
+    between them (CUDA events around the run): the kernel's time on the card
+    without the host's time to start one call, which median_ms includes."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def what_sets_the_time(name: str, hd: int, where: str, ms: float, device_ms: float, moved: float,
+                       flops: float, bound: tuple[float, str], issued: float | None = None
+                       ) -> None:
+    """Prints the occupancy of the forward kernel of csrc/<name>.cu and its
+    achieved rates beside its bound."""
+    occ = fa.forward_occupancy(name, hd)
+    extra = (f" ({issued / device_ms / 1e9:.1f} TFLOP/s of the {issued / 1e9:.2f} GFLOP issued)"
+             if issued else "")
+    print(f"{name} at {where}: {occ['registers']} registers per thread, {occ['smem_bytes']} B of "
+          f"shared memory per CTA, {occ['ctas_per_sm']} resident CTAs per SM; {ms:.4f} ms per "
+          f"call, {device_ms:.4f} ms "
+          f"back to back: {flops / device_ms / 1e9:.1f} TFLOP/s{extra} and "
+          f"{moved / device_ms / 1e9:.3f} TB/s, {100 * bound[0] / device_ms:.1f}% of the "
+          f"{bound[0]:.4f} ms bound ({bound[1]})", flush=True)
+
+
+def check_kernels() -> tuple[float, float]:
+    """Kernel 1 at CHECK_SHAPES, then kernels 1 and 4 at FWD_EDGES, each edge
+    run twice for equal bits. Returns the worst error of each kernel."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
     for b, n, three_dim, heads in CHECK_SHAPES:
@@ -213,7 +256,23 @@ def check_kernels() -> float:
         if not np.isfinite(err) or err >= TOL:
             fail(f"packed_attention disagrees with its plain version at {(b, n, three_dim, heads)}")
         worst = max(worst, err)
-    return worst
+    worst_mha = 0.0
+    for n, hd in FWD_EDGES:
+        qkv = torch.randn((2, n, 6 * hd), generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = mha_inputs((2, 2, n, hd), 3, g)
+        runs1 = [flash_attention_packed(qkv, 2) for _ in range(2)]
+        runs4 = [fa.flash_attention(q, k, v) for _ in range(2)]
+        torch.cuda.synchronize()
+        err1 = (runs1[0].float() - packed_attention_reference(qkv, 2).float()).abs().max().item()
+        err4 = (runs4[0].float() - fa.mha_attention_reference(q, k, v).float()).abs().max().item()
+        same = torch.equal(*runs1) and torch.equal(*runs4)
+        print(f"kernel check forward edge n={n} hd={hd}: packed_attention max_abs_err={err1:.3e}, "
+              f"mha_attention max_abs_err={err4:.3e} (tol {TOL}); two runs bit-equal: {same}",
+              flush=True)
+        if not np.isfinite([err1, err4]).all() or max(err1, err4) >= TOL or not same:
+            fail(f"a forward kernel disagrees with its plain version at the edge n={n} hd={hd}")
+        worst, worst_mha = max(worst, err1), max(worst_mha, err4)
+    return worst, worst_mha
 
 
 def post(url: str, body: bytes) -> dict:
@@ -360,6 +419,7 @@ def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
         b, h, n, hd = shape
         q, k, v = mha_inputs(shape, 3, g)
         kern = median_ms(lambda: fa.flash_attention(q, k, v))
+        device_ms = stream_ms(lambda: fa.flash_attention(q, k, v))
         plain = median_ms(lambda: fa.mha_attention_reference(q, k, v), iters=10)
         lib = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         moved, flops = attention_fwd_work(b, n, h * hd, h)
@@ -367,8 +427,11 @@ def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
         print(f"mha_attention forward at {shape} ({label}): {kern:.4f} ms, bound {bound[0]:.4f} ms "
               f"({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, "
               f"SDPA {lib:.4f} ms", flush=True)
+        # Two passes: Q K^T twice and P V once, 1.5x the bound's operations.
+        what_sets_the_time("mha_attention", hd, f"{shape} ({label})", kern, device_ms, moved, flops,
+                           bound, issued=1.5 * flops)
         out[label] = {"shape": list(shape), "ms": kern, "plain_ms": plain, "library_ms": lib,
-                      "bound": bound}
+                      "bound": bound, "device_ms": device_ms}
     b, h, n, hd = MHA_TRAINING_SHAPE
     q, k, v, do = mha_inputs(MHA_TRAINING_SHAPE, 4, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -502,21 +565,29 @@ def train_fused(card: str) -> dict[str, int]:
     return counts
 
 
-def time_forward(peaks: tuple[float, float], shape: tuple[int, int, int, int]) -> None:
-    """Prints the forward kernel's time, its plain version's, the library
-    call's and its bound at *shape* (beside the serving-shape entry)."""
+def time_forward(peaks: tuple[float, float], shape: tuple[int, int, int, int], label: str,
+                 seed: int) -> dict:
+    """Kernel 1's time at *shape*, its plain version's, the library call's
+    (SDPA on the head-major views of the same qkv), its bound, and what sets
+    its time."""
     b, n, three_dim, heads = shape
     dim, hd = three_dim // 3, three_dim // 3 // heads
-    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
     q, k, v = qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
     kern_ms = median_ms(lambda: flash_attention_packed(qkv, heads))
+    device_ms = stream_ms(lambda: flash_attention_packed(qkv, heads))
     plain_ms = median_ms(lambda: packed_attention_reference(qkv, heads), iters=10)
     lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    moved = (qkv.numel() + b * n * dim) * qkv.element_size()
-    t, by = bound_ms(moved, 4.0 * b * heads * n * n * hd, peaks)
-    print(f"packed_attention forward at {shape}: {kern_ms:.4f} ms, bound {t:.4f} ms ({by}: "
-          f"{moved / 1e6:.1f} MB), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms", flush=True)
+    moved, flops = attention_fwd_work(b, n, dim, heads)
+    bound = bound_ms(moved, flops, peaks)
+    print(f"packed_attention forward at {shape} ({label}): {kern_ms:.4f} ms, bound {bound[0]:.4f} "
+          f"ms ({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} "
+          f"ms, SDPA {lib_ms:.4f} ms", flush=True)
+    what_sets_the_time("packed_attention", hd, f"{shape} ({label})", kern_ms, device_ms, moved,
+                       flops, bound)
+    return {"shape": list(shape), "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound": bound, "device_ms": device_ms}
 
 
 def time_backward(peaks: tuple[float, float], shape: tuple[int, int, int, int] = TRAINING_SHAPE
@@ -758,7 +829,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    max_err = check_kernels()
+    max_err, edge_err4 = check_kernels()
     fused_attn_err = check_fused_attn()
     mlp_err = check_fused_mlp()
 
@@ -860,25 +931,13 @@ def main() -> int:
         service.close()
     serve_fused(fused_service, reqs, timed, served, cfg.depth)
 
-    # -- kernel timing at the serving shape ----------------------------------
-    b, n, three_dim, heads = SERVING_SHAPE
-    dim, hd = three_dim // 3, three_dim // 3 // heads
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
-    q, k, v = qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    kern_ms = median_ms(lambda: flash_attention_packed(qkv, heads))
-    plain_ms = median_ms(lambda: packed_attention_reference(qkv, heads))
-    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    # -- kernel timing at the serving and training shapes ---------------------
     peaks = card_peaks(card)
-    moved = (qkv.numel() + b * n * dim) * qkv.element_size()
-    flops = 4 * b * heads * n * n * hd
-    fwd_bound = bound_ms(moved, flops, peaks)
+    fwd = time_forward(peaks, SERVING_SHAPE, "serving", SEED + 1)
     print(f"ViT-S bs32 forward on the card: {fwd_ms:.3f} ms ({32 / fwd_ms * 1e3:.1f} img/s); "
-          f"attention {cfg.depth} x {kern_ms:.4f} ms = {100 * cfg.depth * kern_ms / fwd_ms:.1f}%",
-          flush=True)
-    print(f"packed_attention at {SERVING_SHAPE}: {moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP",
-          flush=True)
-    time_forward(peaks, TRAINING_SHAPE)
+          f"attention {cfg.depth} x {fwd['ms']:.4f} ms = "
+          f"{100 * cfg.depth * fwd['ms'] / fwd_ms:.1f}%", flush=True)
+    fwd_train = time_forward(peaks, TRAINING_SHAPE, "training", SEED + 6)
 
     # -- the training path ---------------------------------------------------
     bwd_err = check_backward()
@@ -908,11 +967,16 @@ def main() -> int:
         "replaces": "dinox_tpu/ops/flash_attention.py:200",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": fwd_bound[0],
-        "bound_by": fwd_bound[1],
-        "library_ms": lib_ms,
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound"][0],
+        "bound_by": fwd["bound"][1],
+        "library_ms": fwd["library_ms"],
+        "shape": fwd["shape"],
+        "device_ms": fwd["device_ms"],
+        "training": {"shape": fwd_train["shape"], "ms": fwd_train["ms"],
+                     "plain_ms": fwd_train["plain_ms"], "bound_ms": fwd_train["bound"][0],
+                     "library_ms": fwd_train["library_ms"], "device_ms": fwd_train["device_ms"]},
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -966,23 +1030,24 @@ def main() -> int:
         kernels.append(entry)
     # Kernel 4 at the bring-up shape, the one its path runs at; the training
     # shape beside it.
-    fwd, train_fwd = mha["validate"], mha["training"]
+    fwd4, train_fwd = mha["validate"], mha["training"]
     kernels.append({
         "name": "mha_attention",
         "route": "cuda",
         "source": "dinox_torch/ops/csrc/mha_attention.cu",
         "replaces": "dinox_tpu/ops/flash_attention.py:32",
         "launches": mha_counts["mha_attention"],
-        "max_abs_err": mha_err[0],
-        "ms": fwd["ms"],
-        "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound"][0],
-        "bound_by": fwd["bound"][1],
-        "library_ms": fwd["library_ms"],
-        "shape": fwd["shape"],
+        "max_abs_err": max(mha_err[0], edge_err4),
+        "ms": fwd4["ms"],
+        "plain_ms": fwd4["plain_ms"],
+        "bound_ms": fwd4["bound"][0],
+        "bound_by": fwd4["bound"][1],
+        "library_ms": fwd4["library_ms"],
+        "shape": fwd4["shape"],
+        "device_ms": fwd4["device_ms"],
         "training": {"shape": train_fwd["shape"], "ms": train_fwd["ms"],
                      "plain_ms": train_fwd["plain_ms"], "bound_ms": train_fwd["bound"][0],
-                     "library_ms": train_fwd["library_ms"]},
+                     "library_ms": train_fwd["library_ms"], "device_ms": train_fwd["device_ms"]},
     })
     # Kernel 5: two launches; ms is the pair's, parts each one's.
     bwd5 = mha["backward"]

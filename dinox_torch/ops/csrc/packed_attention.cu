@@ -10,63 +10,45 @@
 // unnormalised exp is rounded to bf16 before the PV product, and the division
 // by the row sum comes after PV.
 //
-// Bound on an H100 SXM: at the ViT-S serving shape (B=32, N=261, dim 384,
-// 6 heads, hd 64) the call moves 25.7 MB (qkv read once, out written once)
-// and does 3.35 GFLOP, so memory bounds it (7.7 us at 3.35 TB/s against
-// 3.4 us at 989 TFLOP/s). The design reads every qkv byte from device memory
-// once per query tile: K/V tiles are re-read by the ceil(N/64) query-tile CTAs
-// of a (batch, head), which L2 absorbs at these sizes, and the logits never
-// leave shared memory. What the design does not do yet (later work): wgmma,
-// TMA and a pipelined K/V ring; this version is simple and right first.
-//
-// Design: grid (ceil(N/64) query tiles, heads, B); 4 warps. Each CTA runs
-// the online-softmax tile core of attention_tile.cuh (shared with the fused
-// attention half-block, fused_attn_block.cu) on its (batch, head, query tile):
-// Q, then 64-row K/V tiles staged in shared memory, tensor-core products via
-// nvcuda::wmma (bf16 x bf16 -> f32), f32 O in shared memory, any N (the
-// ragged edge masked), head dims 32, 64 and 88 (88 zero-padded to 96).
+// Bound on an H100 SXM: at the ViT-S training shape (B=192, N=261, dim 384,
+// 6 heads, hd 64) the call moves 153.9 MB (qkv read once, out written once)
+// against 20.1 GFLOP, so memory bounds it (46.0 us at 3.35 TB/s against
+// 20.3 us at 989 TFLOP/s); at the serving shape (B=32) 25.7 MB, 7.7 us. What
+// the design does about it: the tile core of attention_fwd_sm90.cuh (Rounding
+// ::Packed) reads q, k and v straight from the packed rows by TMA, through one
+// 4-D tensor map (hd, 3*heads, N, B) whose innermost extent is exactly hd, so
+// hd 88 is zero-padded to 96 without touching the next head; K/V tiles
+// stream through a two-stage ring while wgmma runs on the previous one; S, P
+// and the f32 O accumulator stay in registers, and the output leaves from
+// registers straight into the head's columns. Every K/V byte is read from
+// L2 by the ceil(N/64) query-tile CTAs of its (batch, head), four CTAs to an
+// SM, so L2 traffic is ~3.3x the bound's bytes at N = 261.
 
-#include "attention_tile.cuh"
+#include "attention_fwd_sm90.cuh"
 
 namespace {
 
-using dinox_attn::BLOCK_M;
-using dinox_attn::Layout;
-using dinox_attn::THREADS;
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-packed_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            __nv_bfloat16* __restrict__ out, int n, int heads,
-                            float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = heads * HD;
-  dinox_attn::attention_tile<HD>(qkv + (long long)b * n * 3 * dim + (long long)h * HD,
-                                 out + (long long)b * n * dim + (long long)h * HD, n, dim,
-                                 blockIdx.x * BLOCK_M, scale, smem);
-}
+using namespace dinox_fwd;
 
 template <int HD>
 cudaError_t launch(const void* qkv, void* out, int b, int n, int heads, float scale,
                    cudaStream_t stream) {
-  using L = Layout<HD>;
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_fwd_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::SMEM));
+  const cuuint64_t row = 6ull * heads * HD;  // bytes of one packed row
+  const cuuint64_t dims[4] = {HD, 3ull * heads, static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * HD, row, row * n};
+  const cuuint32_t box[4] = {BOX_COLS, 1, BLOCK_N, 1};
+  CUtensorMap map;
+  const cudaError_t err = encode_map(&map, qkv, dims, strides, box);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK_M - 1) / BLOCK_M, heads, b);
-  packed_attention_fwd_kernel<HD><<<grid, THREADS, L::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, heads,
-      scale);
-  return cudaGetLastError();
+  return launch_fwd<HD, Rounding::Packed, true>(map, map, map, out, b, heads, n, scale, stream);
 }
 
 }  // namespace
 
-// qkv: (b, n, 3*heads*hd) bf16, contiguous; out: (b, n, heads*hd) bf16,
-// contiguous. Returns the cudaError_t of the launch (0 on success).
+// qkv: (b, n, 3*heads*hd) bf16, contiguous, 16-byte aligned; out: (b, n,
+// heads*hd) bf16, contiguous. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int dinox_packed_attention_fwd_bf16(const void* qkv, void* out, int b, int n,
                                                int heads, int hd, float scale,
                                                void* stream) {
@@ -78,6 +60,21 @@ extern "C" int dinox_packed_attention_fwd_bf16(const void* qkv, void* out, int b
       return static_cast<int>(launch<64>(qkv, out, b, n, heads, scale, s));
     case 88:
       return static_cast<int>(launch<88>(qkv, out, b, n, heads, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers per thread, dynamic shared memory per CTA (bytes) and resident
+// CTAs per SM of the kernel at head dim hd. Returns a cudaError_t.
+extern "C" int dinox_packed_attention_fwd_occupancy(int hd, int* regs, int* smem, int* ctas) {
+  switch (hd) {
+    case 32:
+      return static_cast<int>(occupancy<32, Rounding::Packed, true>(regs, smem, ctas));
+    case 64:
+      return static_cast<int>(occupancy<64, Rounding::Packed, true>(regs, smem, ctas));
+    case 88:
+      return static_cast<int>(occupancy<88, Rounding::Packed, true>(regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

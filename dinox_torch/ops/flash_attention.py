@@ -3,15 +3,18 @@ kernels and their plain PyTorch versions.
 
 Forward: replaces ``_packed_kernel`` (dinox_tpu/ops/flash_attention.py,
 reached through ``_packed_fwd`` and ``flash_attention_packed``). The kernel
-is ``csrc/packed_attention.cu``: a flash-style forward that reads q, k and v
-as hd-wide column slices of the packed ``(B, N, 3*dim)`` row and writes the
-token-major ``(B, N, dim)`` output, with no transposes on either side.
-Bound on an H100 SXM at the ViT-S serving shape (B=32, N=261, dim 384,
-6 heads): 25.7 MB of qkv in and output out against 3.35 GFLOP, so memory
-bounds it (7.7 us at 3.35 TB/s). The design keeps the logits in shared
-memory, uses an online softmax over 64-row key tiles so any N works, and
-takes the tensor cores through ``nvcuda::wmma`` in bf16 with f32
-accumulation.
+is ``csrc/packed_attention.cu``: it reads q, k and v as hd-wide column
+slices of the packed ``(B, N, 3*dim)`` row and writes the token-major
+``(B, N, dim)`` output, with no transposes on either side. Bound on an H100
+SXM at the ViT-S training shape (B=192, N=261, dim 384, 6 heads): 153.9 MB
+of qkv in and output out against 20.1 GFLOP, so memory bounds it (46 us at
+3.35 TB/s; 7.7 us at the serving shape B=32). The design, the forward tile
+core ``csrc/attention_fwd_sm90.cuh`` (shared with kernel 4): K/V tiles come
+by TMA into a two-stage shared-memory ring fed by a producer warp, so loads
+overlap the products; the tensor cores run through ``wgmma`` (bf16 x bf16 ->
+f32), with S, P and the f32 output accumulator in registers; the last key
+tile is multiplied at the narrowest of 16, 32 or 64 keys that covers N (272
+keys, not 320, at N=261). One pass with an online softmax.
 
 Backward: replaces ``_packed_bwd_kernel`` (``_packed_bwd``) and its split
 form ``_packed_bwd_dq_kernel`` + ``_packed_bwd_dkv_kernel``
@@ -38,10 +41,13 @@ strides. Kernel 4 keeps ``_mha_kernel``'s rounding points, not kernel 1's:
 the scale multiplies the f32 logits and P is normalised in f32, then
 rounded, then multiplied by V; its plain version
 :func:`mha_attention_reference` is the JAX package's ``_xla_sdpa`` /
-``sdpa_xla``. Bounds on an H100 SXM at (192, 6, 261, 64): forward 153.9 MB,
-46.0 us (bytes); backward 269.4 MB, 80.4 us (bytes); at (8, 8, 1024, 64)
-the forward's 17.2 GFLOP bound it at 17.4 us. The kernels take any N (no
-fallback above 1024). Launch counts: ``flash_attention.launches``,
+``sdpa_xla``. It runs on the same forward tile core as kernel 1, in two
+passes over the key tiles in one launch (K alone for the row max and sum,
+then K and V), because the normalised P needs the final row sum. Bounds on
+an H100 SXM at (192, 6, 261, 64): forward 153.9 MB, 46.0 us (bytes);
+backward 269.4 MB, 80.4 us (bytes); at (8, 8, 1024, 64) the forward's 17.2
+GFLOP bound it at 17.4 us (the two passes issue 25.8). The kernels take any
+N (no fallback above 1024). Launch counts: ``flash_attention.launches``,
 ``mha_attention_bwd_dq.launches`` and ``mha_attention_bwd_dkv.launches``.
 """
 
@@ -66,6 +72,22 @@ _SIGNATURES = {
     "dinox_mha_attention_bwd_dq_bf16": [_P] * 6 + [_I, _I, _I, _I, _F, _P],
     "dinox_mha_attention_bwd_dkv_bf16": [_P] * 7 + [_I, _I, _I, _I, _F, _P],
 }
+
+
+def forward_occupancy(name: str, hd: int, device: torch.device | str = "cuda") -> dict[str, int]:
+    """Registers per thread, dynamic shared memory per CTA (bytes) and
+    resident CTAs per SM of the forward kernel of ``csrc/<name>.cu``
+    (``packed_attention``: kernel 1, ``mha_attention``: kernel 4) at head dim
+    *hd*, from the CUDA occupancy API on *device*."""
+    fn = getattr(_build.load(name), f"dinox_{name}_fwd_occupancy")
+    fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
+    fn.restype = _I
+    vals = [_I() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(hd, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"occupancy query of {name} failed: cudaError {err}")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), (v.value for v in vals)))
 
 
 def _split_heads(t: torch.Tensor, parts: int, heads: int) -> tuple[torch.Tensor, ...]:

@@ -2,14 +2,18 @@
 its plain PyTorch version, the wrappers' input checks, the served forward
 through the kernel against plain attention, a training micro-step through
 the kernels against plain attention, the fused half-block paths (kernels
-6, 7 and 8) against their plain versions and the unfused model, and the
-head-major pair (kernels 4 and 5) with the sdpa dispatch.
+6, 7 and 8) against their plain versions and the unfused model, the
+head-major pair (kernels 4 and 5) with the sdpa dispatch, and the forward
+tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh) at the ragged
+edges of its tiling, with equal bits on two runs and no spills.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ import torch
 from dinox_torch.bench import fused_block_inputs, fused_mlp_inputs
 from dinox_torch.models.config import MODEL_CONFIGS
 from dinox_torch.models.vit import sdpa
+from dinox_torch.ops import _build
 from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.ops.flash_attention import (
@@ -388,3 +393,98 @@ def test_mha_attention_rejects_what_it_cannot_take(card):
         flash_attention(q, k[:, :, :20].contiguous(), v)  # shape
     with pytest.raises(ValueError):
         mha_attention_backward(q, k, v, q[:1].contiguous())  # gradient shape
+
+
+# -- the forward tile core (kernels 1 and 4) -----------------------------------
+
+# N at the edges of the 64-row query and key tiles and of the 16/32/64-key
+# tail, the ViT N and two past the TPU kernel's 1024.
+EDGE_N = (1, 8, 63, 64, 65, 128, 129, 261, 1024, 1500)
+EDGE_HD = (32, 64, 88)
+
+
+def _packed_edge(card, b, n, heads, hd):
+    return torch.randn((b, n, 3 * heads * hd), generator=card, device="cuda").to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_packed_attention_ragged_edges_match_plain(card, n, hd):
+    qkv = _packed_edge(card, 2, n, 2, hd)
+    before = flash_attention_packed.launches
+    got, again = flash_attention_packed(qkv, 2), flash_attention_packed(qkv, 2)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 2 and torch.equal(got, again)
+    assert (got.float() - packed_attention_reference(qkv, 2).float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_mha_attention_ragged_edges_match_plain(card, n, hd):
+    q, k, v = _mha_inputs(card, (2, 2, n, hd), 3)
+    before = flash_attention.launches
+    got, again = flash_attention(q, k, v), flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 and torch.equal(got, again)
+    assert (got.float() - mha_attention_reference(q, k, v).float()).abs().max().item() < TOL
+
+
+# (b, n, heads, hd): B*H = 1, and the ViT-S training shape (192 views).
+FWD_BIT_SHAPES = [(1, 261, 1, 64), (192, 261, 6, 64)]
+
+
+@pytest.mark.parametrize("shape", FWD_BIT_SHAPES)
+def test_packed_attention_repeats_bit_for_bit(card, shape):
+    b, n, heads, hd = shape
+    qkv = _packed_edge(card, b, n, heads, hd)
+    runs = [flash_attention_packed(qkv, heads) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert (runs[0].float() - packed_attention_reference(qkv, heads).float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("shape", FWD_BIT_SHAPES)
+def test_mha_attention_repeats_bit_for_bit(card, shape):
+    b, n, heads, hd = shape
+    q, k, v = _mha_inputs(card, (b, heads, n, hd), 3)
+    runs = [flash_attention(q, k, v) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert (runs[0].float() - mha_attention_reference(q, k, v).float()).abs().max().item() < TOL
+
+
+def _nan_tailed(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of *t* at the front of a larger flat buffer whose
+    tail (one 64-row tile and more) is NaN."""
+    buf = torch.full((t.numel() + 64 * 3 * 1408,), float("nan"), dtype=t.dtype, device=t.device)
+    buf[:t.numel()] = t.flatten()
+    return buf[:t.numel()].view(t.shape)
+
+
+def test_packed_attention_never_reads_past_the_operand(card):
+    """Rows past N = 261, read by the ragged last tile, never reach the
+    softmax or PV: NaN bytes just past qkv change nothing."""
+    qkv = _packed_edge(card, 2, 261, 6, 64)
+    got = flash_attention_packed(_nan_tailed(qkv), 6)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, flash_attention_packed(qkv, 6))
+    assert (got.float() - packed_attention_reference(qkv, 6).float()).abs().max().item() < TOL
+
+
+def test_mha_attention_never_reads_past_the_operand(card):
+    q, k, v = _mha_inputs(card, (2, 6, 261, 64), 3)
+    got = flash_attention(*(_nan_tailed(t) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, flash_attention(q, k, v))
+    assert (got.float() - mha_attention_reference(q, k, v).float()).abs().max().item() < TOL
+
+
+@pytest.mark.parametrize("name", ["packed_attention", "mha_attention"])
+def test_forward_kernels_do_not_spill(card, name):
+    """ptxas -v of the library: every instantiation (hd 32, 64, 88) with 0
+    bytes of spill stores."""
+    _build.load(name)
+    spills = re.findall(r"(\d+) bytes spill stores", _build.build_log(name))
+    assert len(spills) == 3 and all(int(x) == 0 for x in spills)
