@@ -19,7 +19,10 @@ Run from the repository root:  python3 chip_smoke.py
    >= 0.999 against the same weights with plain attention) and that every
    forward went through the kernel (launches == depth x forwards).
 6. Holds the backward kernel pair (dq, dkv) against the plain backward at
-   six shapes, the training shape and the ViT-G one included.
+   six shapes, the training shape and the ViT-G one included, then both
+   backward pairs of the tile core attention_bwd_sm90.cuh (kernels 2/3 and
+   5) at the ragged edges of its tiling (N 1 to 1500, hd 32/64/88): each
+   twice with equal bits, kernel 5 bit-equal to kernel 2.
 7. Runs one training micro-step of full ViT-S (bs 8) through the kernels
    and once with plain attention, from one state and the same views: the
    losses within 1e-2 relative, every gradient at cosine >= 0.99.
@@ -56,9 +59,13 @@ Run from the repository root:  python3 chip_smoke.py
    composition of each fused half-block, and its bound (kernel 1 at the
    serving shape, kernel 4 at the bring-up shape, the rest at the training
    shape, kernels 1, 4 and 6 at both), and prints them as one JSON line. For
-   kernels 1 and 4 it also prints what sets the time: registers, shared
-   memory per CTA and resident CTAs per SM (the occupancy API), the time of
-   back-to-back launches, and the achieved TFLOP/s and TB/s beside the bound.
+   kernels 1, 4 and both backward pairs (each of their dq and dkv kernels)
+   it also prints what sets the time: registers, shared memory per CTA and
+   resident CTAs per SM (the occupancy API), the time of back-to-back
+   launches (SDPA's backward's too), and the achieved TFLOP/s (on the
+   algorithm's operations and on those the tiles issue) and TB/s beside the
+   bound; the pair at the training shape is also held against its plain
+   version there.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -145,12 +152,17 @@ MHA_CHECK_SHAPE, MHA_VALIDATE_SHAPE, MHA_TRAINING_SHAPE = MHA_SHAPES[:3]
 # heads of batch 2: one key, the 64-row tile boundaries, a 16- and a 32-key
 # tail, and N past the TPU kernel's 1024.
 FWD_EDGES = [(1, 32), (63, 64), (64, 88), (65, 64), (90, 32), (129, 88), (1500, 64)]
+# The backward tile core's ragged edges, N x hd, for both pairs at two heads
+# of batch 2: the edges of the 64-row tiles and of the 16/32/64-row tail on
+# both axes, the ViT N and two past the TPU kernel's 1024.
+BWD_EDGE_N = (1, 8, 63, 64, 65, 128, 129, 261, 1024, 1500)
+BWD_EDGE_HD = (32, 64, 88)
 VALIDATE_LAUNCHES = 11  # the gate's first call and 10 steady calls
 # Device kernels grouped by what they do, by substrings of their names.
 KERNEL_KINDS = [
     ("attention forward kernel", ("attention_fwd_sm90",)),
-    ("attention backward dq kernel", ("packed_attention_bwd_dq",)),
-    ("attention backward dkv kernel", ("packed_attention_bwd_dkv",)),
+    ("attention backward dq kernel", ("attention_bwd_sm90_dq",)),
+    ("attention backward dkv kernel", ("attention_bwd_sm90_dkv",)),
     ("fused attention half-block kernel", ("fused_attn_block",)),
     ("fused MLP forward kernel", ("fused_mlp_fwd",)),
     ("fused MLP backward rows kernel", ("fused_mlp_bwd_rows",)),
@@ -225,12 +237,11 @@ def stream_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def what_sets_the_time(name: str, hd: int, where: str, ms: float, device_ms: float, moved: float,
-                       flops: float, bound: tuple[float, str], issued: float | None = None
-                       ) -> None:
-    """Prints the occupancy of the forward kernel of csrc/<name>.cu and its
-    achieved rates beside its bound."""
-    occ = fa.forward_occupancy(name, hd)
+def what_sets_the_time(name: str, occ: dict[str, int], where: str, ms: float, device_ms: float,
+                       moved: float, flops: float, bound: tuple[float, str],
+                       issued: float | None = None) -> None:
+    """Prints the occupancy *occ* of a kernel (fa.forward_occupancy or
+    fa.backward_occupancy) and its achieved rates beside its bound."""
     extra = (f" ({issued / device_ms / 1e9:.1f} TFLOP/s of the {issued / 1e9:.2f} GFLOP issued)"
              if issued else "")
     print(f"{name} at {where}: {occ['registers']} registers per thread, {occ['smem_bytes']} B of "
@@ -320,6 +331,79 @@ def check_backward() -> tuple[float, float]:
             fail(f"the backward pair disagrees with its plain version at {(b, n, three_dim, heads)}")
         worst_dq, worst_dkv = max(worst_dq, err_dq), max(worst_dkv, err_dkv)
     return worst_dq, worst_dkv
+
+
+def check_backward_edges() -> tuple[float, float]:
+    """Both backward pairs of the tile core at BWD_EDGE_N x BWD_EDGE_HD (batch
+    2, two heads): each within BWD_TOL and BWD_REL of the plain backward (at
+    N = 1 dq is exactly 0), twice with equal bits, and kernel 5 bit-equal to
+    kernel 2 on the same data laid out packed. Returns the worst error of
+    kernel 2's and of kernel 5's gradients."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    worst2 = worst5 = 0.0
+    for n in BWD_EDGE_N:
+        for hd in BWD_EDGE_HD:
+            q, k, v, do = mha_inputs((2, 2, n, hd), 4, g)
+            qkv = torch.cat([to_tokens(t) for t in (q, k, v)], -1)
+            do_tokens = to_tokens(do).contiguous()
+            runs2 = [fa.packed_attention_backward(qkv, do_tokens, 2) for _ in range(2)]
+            runs5 = [fa.mha_attention_backward(q, k, v, do) for _ in range(2)]
+            torch.cuda.synchronize()
+            want = fa.mha_attention_backward_reference(q, k, v, do)
+            errs2 = [(a.float() - w.float()).abs().max().item()
+                     for a, w in zip(runs2[0].chunk(3, dim=-1), (to_tokens(t) for t in want))]
+            errs5 = [(a.float() - w.float()).abs().max().item() for a, w in zip(runs5[0], want)]
+            tops = [w.float().abs().max().item() for w in want]
+            rel = max(e / t if t else (0.0 if e == 0 else np.inf)
+                      for e, t in zip(errs2 + errs5, tops + tops))
+            same = (torch.equal(*runs2) and all(torch.equal(a, b) for a, b in zip(*runs5)))
+            same25 = torch.equal(runs2[0], torch.cat([to_tokens(t) for t in runs5[0]], -1))
+            print(f"kernel check backward edge n={n} hd={hd}: kernel 2 max_abs_err "
+                  f"{max(errs2):.3e}, kernel 5 {max(errs5):.3e} (tol {BWD_TOL}), worst "
+                  f"max_abs_err/max|want| {rel:.3e} (tol {BWD_REL}); two runs bit-equal: {same}; "
+                  f"kernel 5 bit-equal to kernel 2: {same25}", flush=True)
+            if not np.isfinite(errs2 + errs5).all() or max(errs2 + errs5) >= BWD_TOL or rel > BWD_REL:
+                fail(f"a backward pair disagrees with the plain backward at the edge n={n} hd={hd}")
+            if not same or not same25:
+                fail(f"the backward pairs' bits are not repeatable or not equal at n={n} hd={hd}")
+            worst2, worst5 = max(worst2, *errs2), max(worst5, *errs5)
+    return worst2, worst5
+
+
+def padded_rows(n: int) -> int:
+    """Rows the backward core multiplies on its looped axis (keys in dq,
+    queries in dkv): 64-row tiles, the last at the narrowest of 16, 32 or 64
+    rows that covers N (272 at N = 261)."""
+    full, rem = divmod(n, 64)
+    return 64 * full + (next(w for w in (16, 32, 64) if w >= rem) if rem else 0)
+
+
+def bwd_issued_flops(b: int, n: int, heads: int, hd: int) -> tuple[float, float]:
+    """Operations the backward core's tiles issue, (dq kernel, dkv kernel):
+    5 and 4 products of (the CTA's rows, padded to 64) x padded_rows(N) x
+    (hd padded to 32)."""
+    one = 2.0 * b * heads * (-(-n // 64) * 64) * padded_rows(n) * (-(-hd // 32) * 32)
+    return 5 * one, 4 * one
+
+
+def what_sets_the_pairs_time(name: str, b: int, n: int, heads: int, hd: int, per_call: dict,
+                             device: dict, peaks: tuple[float, float]) -> dict[str, tuple]:
+    """what_sets_the_time for the dq and the dkv kernel of the backward pair
+    csrc/<name>.cu, each alone: dq reads q, k, v and dO and writes dq and the
+    (m, l, D) statistics (S, dP, dQ); dkv reads q, k, v, dO and the
+    statistics and writes dk and dv (S^T, dP^T, dV, dK). Returns each
+    kernel's bound."""
+    elems, stats_bytes = b * n * heads * hd, 3 * 4 * b * heads * n
+    flops = 2.0 * b * heads * n * n * hd  # one (n, n, hd) product
+    issued = bwd_issued_flops(b, n, heads, hd)
+    work = {"dq": (5 * 2 * elems + stats_bytes, 3 * flops, issued[0]),
+            "dkv": (6 * 2 * elems + stats_bytes, 4 * flops, issued[1])}
+    bounds = {}
+    for part, (moved, ops, iss) in work.items():
+        bounds[part] = bound_ms(moved, ops, peaks)
+        what_sets_the_time(f"{name} {part}", fa.backward_occupancy(name, hd, part), f"{(b, n, heads, hd)}",
+                           per_call[part], device[part], moved, ops, bounds[part], issued=iss)
+    return bounds
 
 
 def mha_inputs(shape: tuple[int, ...], count: int, gen: torch.Generator) -> list[torch.Tensor]:
@@ -428,8 +512,9 @@ def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
               f"({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, "
               f"SDPA {lib:.4f} ms", flush=True)
         # Two passes: Q K^T twice and P V once, 1.5x the bound's operations.
-        what_sets_the_time("mha_attention", hd, f"{shape} ({label})", kern, device_ms, moved, flops,
-                           bound, issued=1.5 * flops)
+        what_sets_the_time("mha_attention", fa.forward_occupancy("mha_attention", hd),
+                           f"{shape} ({label})", kern, device_ms, moved, flops, bound,
+                           issued=1.5 * flops)
         out[label] = {"shape": list(shape), "ms": kern, "plain_ms": plain, "library_ms": lib,
                       "bound": bound, "device_ms": device_ms}
     b, h, n, hd = MHA_TRAINING_SHAPE
@@ -437,22 +522,32 @@ def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((b * h, 3, n), dtype=torch.float32, device="cuda")
     fa.mha_attention_bwd_dq(q, k, v, do, dq, stats)
-    parts = {"mha_attention_bwd_dq": median_ms(lambda: fa.mha_attention_bwd_dq(q, k, v, do, dq, stats)),
-             "mha_attention_bwd_dkv": median_ms(
-                 lambda: fa.mha_attention_bwd_dkv(q, k, v, do, stats, dk, dv))}
+    calls = {"mha_attention_bwd_dq": lambda: fa.mha_attention_bwd_dq(q, k, v, do, dq, stats),
+             "mha_attention_bwd_dkv": lambda: fa.mha_attention_bwd_dkv(q, k, v, do, stats, dk, dv)}
+    parts = {name: median_ms(fn) for name, fn in calls.items()}
+    parts_device = {name: stream_ms(fn) for name, fn in calls.items()}
     pair = median_ms(lambda: fa.mha_attention_backward(q, k, v, do))
+    pair_device = stream_ms(lambda: fa.mha_attention_backward(q, k, v, do))
     plain = median_ms(lambda: fa.mha_attention_backward_reference(q, k, v, do), iters=10)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     o = F.scaled_dot_product_attention(*leaves)
     lib = median_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
+    lib_device = stream_ms(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True))
     moved, flops = attention_bwd_work(b, n, h * hd, h)
     bound = bound_ms(moved, flops, peaks)
     print(f"mha_attention backward at {MHA_TRAINING_SHAPE}: pair {pair:.4f} ms (dq "
-          f"{parts['mha_attention_bwd_dq']:.4f} + dkv {parts['mha_attention_bwd_dkv']:.4f}), bound "
-          f"{bound[0]:.4f} ms ({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain "
-          f"{plain:.4f} ms; SDPA backward {lib:.4f} ms", flush=True)
+          f"{parts['mha_attention_bwd_dq']:.4f} + dkv {parts['mha_attention_bwd_dkv']:.4f}), "
+          f"{pair_device:.4f} ms back to back (dq {parts_device['mha_attention_bwd_dq']:.4f} + dkv "
+          f"{parts_device['mha_attention_bwd_dkv']:.4f}), bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain {plain:.4f} ms; SDPA backward "
+          f"{lib:.4f} ms, {lib_device:.4f} ms back to back", flush=True)
+    what_sets_the_pairs_time("mha_attention_bwd", b, n, h, hd,
+                             {part: parts[f"mha_attention_bwd_{part}"] for part in ("dq", "dkv")},
+                             {part: parts_device[f"mha_attention_bwd_{part}"] for part in ("dq", "dkv")},
+                             peaks)
     out["backward"] = {"shape": list(MHA_TRAINING_SHAPE), "ms": pair, "plain_ms": plain,
-                       "library_ms": lib, "bound": bound, "parts": parts}
+                       "library_ms": lib, "bound": bound, "parts": parts, "device_ms": pair_device,
+                       "library_device_ms": lib_device, "parts_device_ms": parts_device}
     return out
 
 
@@ -584,48 +679,63 @@ def time_forward(peaks: tuple[float, float], shape: tuple[int, int, int, int], l
     print(f"packed_attention forward at {shape} ({label}): {kern_ms:.4f} ms, bound {bound[0]:.4f} "
           f"ms ({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), plain {plain_ms:.4f} "
           f"ms, SDPA {lib_ms:.4f} ms", flush=True)
-    what_sets_the_time("packed_attention", hd, f"{shape} ({label})", kern_ms, device_ms, moved,
-                       flops, bound)
+    what_sets_the_time("packed_attention", fa.forward_occupancy("packed_attention", hd),
+                       f"{shape} ({label})", kern_ms, device_ms, moved, flops, bound)
     return {"shape": list(shape), "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound": bound, "device_ms": device_ms}
 
 
 def time_backward(peaks: tuple[float, float], shape: tuple[int, int, int, int] = TRAINING_SHAPE
                   ) -> dict[str, dict]:
-    """Times of the pair, each kernel, the plain backward and the library
-    backward at *shape*, with their bounds."""
+    """The packed pair at *shape*: held against the plain backward on the
+    inputs it is timed on, then the times of the pair, of each kernel and of
+    SDPA's backward, per call and back to back, the plain backward's, the
+    bounds, and what sets each kernel's time."""
     b, n, three_dim, heads = shape
     dim, hd = three_dim // 3, three_dim // 3 // heads
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
     qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
     do = torch.randn((b, n, dim), generator=g, device="cuda").to(torch.bfloat16)
+    got = fa.packed_attention_backward(qkv, do, heads)
+    torch.cuda.synchronize()
+    want = fa.packed_attention_backward_reference(qkv, do, heads).float()
+    err = (got.float() - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    print(f"kernel check packed_attention backward at {shape} on the timed inputs: max_abs_err "
+          f"{err:.3e} (tol {BWD_TOL}), max_abs_err/max|want| {rel:.3e} (tol {BWD_REL})", flush=True)
+    if not np.isfinite(err) or err >= BWD_TOL or rel >= BWD_REL:
+        fail(f"the backward pair disagrees with its plain version on the timed inputs at {shape}")
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((b * heads, 3, n), dtype=torch.float32, device="cuda")
     fa.packed_attention_bwd_dq(qkv, do, heads, dqkv, stats)
-    dq_ms = median_ms(lambda: fa.packed_attention_bwd_dq(qkv, do, heads, dqkv, stats))
-    dkv_ms = median_ms(lambda: fa.packed_attention_bwd_dkv(qkv, do, heads, stats, dqkv))
-    pair_ms = median_ms(lambda: fa.packed_attention_backward(qkv, do, heads))
+    calls = {"dq": lambda: fa.packed_attention_bwd_dq(qkv, do, heads, dqkv, stats),
+             "dkv": lambda: fa.packed_attention_bwd_dkv(qkv, do, heads, stats, dqkv),
+             "pair": lambda: fa.packed_attention_backward(qkv, do, heads)}
+    per_call = {name: median_ms(fn) for name, fn in calls.items()}
+    device = {name: stream_ms(fn) for name, fn in calls.items()}
     plain_ms = median_ms(lambda: fa.packed_attention_backward_reference(qkv, do, heads), iters=10)
     q, k, v = (t.detach().requires_grad_(True)
                for t in qkv.view(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0))
     out = F.scaled_dot_product_attention(q, k, v)
     go = do.view(b, n, heads, hd).transpose(1, 2)
     lib_ms = median_ms(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
-    nbytes = qkv.element_size()
-    stats_bytes = stats.numel() * stats.element_size()
-    flops = 2.0 * b * heads * n * n * hd  # one (n, n, hd) product
-    pair_bound = bound_ms((qkv.numel() + do.numel() + dqkv.numel()) * nbytes, 5 * flops, peaks)
-    # dkv alone: reads qkv, dO and the statistics, writes the dk and dv slots;
-    # S^T, dP^T, dV and dK.
-    dkv_bound = bound_ms((qkv.numel() + do.numel() + 2 * b * n * dim) * nbytes + stats_bytes,
-                      4 * flops, peaks)
-    print(f"packed attention backward at {shape}: pair {pair_ms:.4f} ms (dq {dq_ms:.4f} "
-          f"+ dkv {dkv_ms:.4f}), bound {pair_bound[0]:.4f} ms ({pair_bound[1]}: "
-          f"{(qkv.numel() + do.numel() + dqkv.numel()) * nbytes / 1e6:.1f} MB, "
-          f"{5 * flops / 1e9:.2f} GFLOP); plain {plain_ms:.4f} ms; "
-          f"SDPA backward {lib_ms:.4f} ms; dkv alone bound {dkv_bound[0]:.4f} ms", flush=True)
-    return {"dq": {"ms": pair_ms, "plain_ms": plain_ms, "bound": pair_bound, "library_ms": lib_ms},
-            "dkv": {"ms": dkv_ms, "plain_ms": plain_ms, "bound": dkv_bound, "library_ms": lib_ms}}
+    lib_device = stream_ms(lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True))
+    moved, flops = attention_bwd_work(b, n, dim, heads)
+    pair_bound = bound_ms(moved, flops, peaks)
+    issued = bwd_issued_flops(b, n, heads, hd)
+    print(f"packed attention backward at {shape}: pair {per_call['pair']:.4f} ms (dq "
+          f"{per_call['dq']:.4f} + dkv {per_call['dkv']:.4f}), {device['pair']:.4f} ms back to back "
+          f"(dq {device['dq']:.4f} + dkv {device['dkv']:.4f}), bound {pair_bound[0]:.4f} ms "
+          f"({pair_bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; the tiles issue "
+          f"{sum(issued) / 1e9:.2f}: {flops / device['pair'] / 1e9:.1f} TFLOP/s, "
+          f"{sum(issued) / device['pair'] / 1e9:.1f} issued, {moved / device['pair'] / 1e9:.3f} "
+          f"TB/s back to back); plain {plain_ms:.4f} ms; SDPA backward {lib_ms:.4f} ms, "
+          f"{lib_device:.4f} ms back to back", flush=True)
+    bounds = what_sets_the_pairs_time("packed_attention_bwd", b, n, heads, hd, per_call, device, peaks)
+    return {"dq": {"ms": per_call["pair"], "device_ms": device["pair"], "plain_ms": plain_ms,
+                   "bound": pair_bound, "library_ms": lib_ms, "library_device_ms": lib_device},
+            "dkv": {"ms": per_call["dkv"], "device_ms": device["dkv"], "plain_ms": plain_ms,
+                    "bound": bounds["dkv"], "library_ms": lib_ms, "library_device_ms": lib_device}}
 
 
 def check_fused_attn() -> float:
@@ -941,6 +1051,7 @@ def main() -> int:
 
     # -- the training path ---------------------------------------------------
     bwd_err = check_backward()
+    edge_err2, edge_err5 = check_backward_edges()
 
     # -- the head-major pair (kernels 4 and 5) and its path --------------------
     mha_err = check_mha()
@@ -980,8 +1091,8 @@ def main() -> int:
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
-    for part, err, replaces in (("dq", bwd_err[0], "dinox_tpu/ops/flash_attention.py:222"),
-                                ("dkv", bwd_err[1], "dinox_tpu/ops/flash_attention.py:339")):
+    for part, err, replaces in (("dq", max(bwd_err[0], edge_err2), "dinox_tpu/ops/flash_attention.py:222"),
+                                ("dkv", max(bwd_err[1], edge_err2), "dinox_tpu/ops/flash_attention.py:339")):
         name = f"packed_attention_bwd_{part}"
         kernels.append({
             "name": name,
@@ -995,6 +1106,8 @@ def main() -> int:
             "bound_ms": bwd[part]["bound"][0],
             "bound_by": bwd[part]["bound"][1],
             "library_ms": bwd[part]["library_ms"],
+            "device_ms": bwd[part]["device_ms"],
+            "library_device_ms": bwd[part]["library_device_ms"],
         })
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
@@ -1057,14 +1170,17 @@ def main() -> int:
         "source": "dinox_torch/ops/csrc/mha_attention_bwd.cu",
         "replaces": "dinox_tpu/ops/flash_attention.py:107",
         "launches": min(mha_counts[p] for p in bwd5["parts"]),
-        "max_abs_err": mha_err[1],
+        "max_abs_err": max(mha_err[1], edge_err5),
         "ms": bwd5["ms"],
         "plain_ms": bwd5["plain_ms"],
         "bound_ms": bwd5["bound"][0],
         "bound_by": bwd5["bound"][1],
         "library_ms": bwd5["library_ms"],
         "shape": bwd5["shape"],
-        "parts": {p.rsplit("_", 1)[1]: {"launches": mha_counts[p], "ms": ms}
+        "device_ms": bwd5["device_ms"],
+        "library_device_ms": bwd5["library_device_ms"],
+        "parts": {p.rsplit("_", 1)[1]: {"launches": mha_counts[p], "ms": ms,
+                                        "device_ms": bwd5["parts_device_ms"][p]}
                   for p, ms in bwd5["parts"].items()},
     })
     print(json.dumps({"kernels": kernels}), flush=True)

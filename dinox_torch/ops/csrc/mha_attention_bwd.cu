@@ -14,88 +14,53 @@
 // dO (154 MB) and write dq, dk, dv (115.5 MB): 269.4 MB, 80.4 us at
 // 3.35 TB/s, against 50.2 GFLOP, 51 us at 989 TFLOP/s, so memory bounds it.
 //
-// Design: the tile code of attention_bwd_tile.cuh, the same code the packed
-// backward runs (packed_attention_bwd.cu), addressed here by the head's base
-// (b*H + h)*N*hd and a row pitch of hd; on the same data laid out packed and
-// head-major the two give the same bits. Grid (ceil(N/64), H, B), 4 warps.
-// The dq kernel writes dQ and each row's (m, l, D) to a (B*H, 3, N) f32
-// scratch; the dkv kernel, launched after it, reads them and writes dK and
-// dV. Deterministic, no atomics; any N; hd 32, 64 and 88 (88 zero-padded to
-// 96 in shared memory). Row addresses are 16-byte aligned for every N, since
-// hd * 2 bytes is a multiple of 16. It inherits the packed pair's distance
-// from the bound (S and dP recomputed in both kernels, K/V and Q/dO tiles
-// re-read from L2 per tile pair); wgmma and TMA are later work.
+// Design: the backward tile core of attention_bwd_sm90.cuh, the code the
+// packed backward runs (packed_attention_bwd.cu, whose note gives the issued
+// work), with q, k, v and dO brought by TMA through four 4-D maps
+// (hd, N, H, B) that zero-fill rows past N and hd 88's columns 88-95; on the
+// same data laid out packed and head-major the two give the same bits. The
+// dq kernel writes dQ and each row's (m, l, D) to a (B*H, 3, N) f32 scratch;
+// the dkv kernel, launched after it, reads them and writes dK and dV.
+// Deterministic, no atomics; any N; hd 32, 64 and 88.
 
-#include "attention_bwd_tile.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace {
 
-using dinox_attn_bwd::BLOCK;
-using dinox_attn_bwd::Layout;
-using dinox_attn_bwd::THREADS;
+using namespace dinox_bwd;
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-mha_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ dout,
-                            __nv_bfloat16* __restrict__ dq, float* __restrict__ stats, int n,
-                            float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
-  const long long off = bh * n * HD;
-  dinox_attn_bwd::dq_tile<HD>(q + off, k + off, v + off, HD, dout + off, HD, dq + off, HD,
-                              stats + bh * 3 * n, n, blockIdx.x * BLOCK, scale, smem);
+cudaError_t head_major_maps(const void* const (&bases)[4], int b, int heads, int n,
+                            CUtensorMap (&maps)[4]) {
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * n, 2ull * HD * n * heads};
+  const cuuint32_t box[4] = {BOX_COLS, BLOCK, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = encode_map(&maps[i], bases[i], dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-mha_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ dout,
-                             const float* __restrict__ stats, __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int n, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
-  const long long off = bh * n * HD;
-  dinox_attn_bwd::dkv_tile<HD>(q + off, k + off, v + off, HD, dout + off, HD, stats + bh * 3 * n,
-                               dk + off, dv + off, HD, n, blockIdx.x * BLOCK, scale, smem);
-}
-
-template <int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                      void* stats, int b, int heads, int n, float scale, cudaStream_t stream) {
-  using L = Layout<HD>;
-  cudaError_t err = cudaFuncSetAttribute(mha_attention_bwd_dq_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::SMEM));
+cudaError_t dq(const void* q, const void* k, const void* v, const void* dout, void* dqo,
+               void* stats, int b, int heads, int n, float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const cudaError_t err = head_major_maps<HD>({q, k, v, dout}, b, heads, n, maps);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK - 1) / BLOCK, heads, b);
-  using B = const __nv_bfloat16*;
-  mha_attention_bwd_dq_kernel<HD><<<grid, THREADS, L::SMEM, stream>>>(
-      static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), static_cast<B>(dout),
-      static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats), n, scale);
-  return cudaGetLastError();
+  return launch_dq<HD, false>(maps[0], maps[1], maps[2], maps[3], dqo, stats, b, heads, n, scale,
+                              stream);
 }
 
 template <int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* stats, void* dk, void* dv, int b, int heads, int n, float scale,
-                       cudaStream_t stream) {
-  using L = Layout<HD>;
-  cudaError_t err = cudaFuncSetAttribute(mha_attention_bwd_dkv_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::SMEM));
+cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, const void* stats,
+                void* dk, void* dv, int b, int heads, int n, float scale, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const cudaError_t err = head_major_maps<HD>({q, k, v, dout}, b, heads, n, maps);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK - 1) / BLOCK, heads, b);
-  using B = const __nv_bfloat16*;
-  mha_attention_bwd_dkv_kernel<HD><<<grid, THREADS, L::SMEM, stream>>>(
-      static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), static_cast<B>(dout),
-      static_cast<const float*>(stats), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), n, scale);
-  return cudaGetLastError();
+  return launch_dkv<HD, false>(maps[0], maps[1], maps[2], maps[3], stats, dk, dv, b, heads, n,
+                               scale, stream);
 }
 
 }  // namespace
@@ -106,17 +71,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 // the same stream, reads stats and writes dk and dv. Each returns the
 // cudaError_t of its launch.
 extern "C" int dinox_mha_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                               const void* dout, void* dq, void* stats, int b,
+                                               const void* dout, void* dq_out, void* stats, int b,
                                                int heads, int n, int hd, float scale,
                                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return static_cast<int>(launch_dq<32>(q, k, v, dout, dq, stats, b, heads, n, scale, s));
+      return static_cast<int>(dq<32>(q, k, v, dout, dq_out, stats, b, heads, n, scale, s));
     case 64:
-      return static_cast<int>(launch_dq<64>(q, k, v, dout, dq, stats, b, heads, n, scale, s));
+      return static_cast<int>(dq<64>(q, k, v, dout, dq_out, stats, b, heads, n, scale, s));
     case 88:
-      return static_cast<int>(launch_dq<88>(q, k, v, dout, dq, stats, b, heads, n, scale, s));
+      return static_cast<int>(dq<88>(q, k, v, dout, dq_out, stats, b, heads, n, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -129,14 +94,28 @@ extern "C" int dinox_mha_attention_bwd_dkv_bf16(const void* q, const void* k, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return static_cast<int>(
-          launch_dkv<32>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
+      return static_cast<int>(dkv<32>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
     case 64:
-      return static_cast<int>(
-          launch_dkv<64>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
+      return static_cast<int>(dkv<64>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
     case 88:
-      return static_cast<int>(
-          launch_dkv<88>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
+      return static_cast<int>(dkv<88>(q, k, v, dout, stats, dk, dv, b, heads, n, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers per thread, dynamic shared memory per CTA (bytes) and resident
+// CTAs per SM of the dq (part 0) or dkv (part 1) kernel at head dim hd.
+// Returns a cudaError_t.
+extern "C" int dinox_mha_attention_bwd_occupancy(int hd, int part, int* regs, int* smem,
+                                                 int* ctas) {
+  switch (hd) {
+    case 32:
+      return static_cast<int>(occupancy_bwd<32, false>(part, regs, smem, ctas));
+    case 64:
+      return static_cast<int>(occupancy_bwd<64, false>(part, regs, smem, ctas));
+    case 88:
+      return static_cast<int>(occupancy_bwd<88, false>(part, regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

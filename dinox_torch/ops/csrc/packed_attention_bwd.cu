@@ -19,97 +19,71 @@
 //
 // Bound on an H100 SXM: at the ViT-S training shape (192 views, N=261,
 // dim 384, 6 heads) the pair must read qkv (115.5 MB) and dO (38.5 MB) and
-// write dqkv (115.5 MB): 269 MB, 80 us at 3.35 TB/s, against 50.2 GFLOP
-// (10 b h n^2 hd), 51 us at 989 TFLOP/s, so memory bounds it. The design
-// does not reach that bound: it recomputes S and dP (three times over for a
-// query/key tile pair) to keep every block independent, and re-reads K/V
-// and Q/dO tiles from L2 once per tile pair. What it does do: the (N, N)
-// matrices never leave shared memory, each output slot is written once, and
-// no block adds into another's output, so the result is deterministic
-// (no atomics). wgmma, TMA and a single fused pass are later work.
+// write dqkv (115.5 MB): 269.4 MB, 80.4 us at 3.35 TB/s, against 50.2 GFLOP
+// (10 b h n^2 hd), 51 us at 989 TFLOP/s, so memory bounds it.
 //
-// Design: both kernels use the grid (ceil(N/64), heads, B) and 4 warps and
-// run the tile code of attention_bwd_tile.cuh (shared with the head-major
-// backward, mha_attention_bwd.cu, which gives the same bits on the same
-// data): the dq kernel one 64-row query tile per CTA, writing the dQ slot
-// and each row's (m, l, D) to a (B*heads, 3, N) f32 scratch; then the dkv
-// kernel one 64-row key tile per CTA, writing the dK and dV slots.
+// Issued work, and what the design does about it: the backward tile core of
+// attention_bwd_sm90.cuh, one wgmma consumer warpgroup and one TMA producer
+// warp per CTA, the same code the head-major backward (mha_attention_bwd.cu)
+// runs, so the two give the same bits on the same data. The dq kernel (one
+// 64-row query tile per CTA) computes S and dP twice (once for the softmax
+// statistics and D, once to form dS) and dQ; the dkv kernel (one 64-row key
+// tile per CTA) S^T, dP^T, dV and dK: 9 tile products per (query, key) tile
+// pair where one fused kernel would issue 5, 115.5 GFLOP at the training
+// shape (the CTA's rows padded to 320, the looped rows to 272), bought for
+// determinism without atomics and the reference's exact D = rowsum(dP * P).
+// Every product runs
+// on wgmma with its accumulator in registers, and each streamed tile's TMA
+// load overlaps the previous tile's products; the (N, N) matrices never
+// leave registers. What is left above the byte bound: each CTA rereads its
+// head's K/V (dq, twice) or Q/dO (dkv) from L2, ~1.2 GB a call by count.
+// q, k and v come by TMA through one 4-D map (hd, 3*heads, N, B) of qkv, dO
+// through one (hd, heads, N, B), both with an innermost extent of exactly
+// hd, so hd 88 is zero-padded to 96 without touching the next head.
 
-#include "attention_bwd_tile.cuh"
+#include "attention_bwd_sm90.cuh"
 
 namespace {
 
-using dinox_attn_bwd::BLOCK;
-using dinox_attn_bwd::Layout;
-using dinox_attn_bwd::THREADS;
+using namespace dinox_bwd;
 
+// The maps of qkv (q, k, v in head slots h, heads + h, 2 * heads + h) and dO.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-packed_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
-                               const __nv_bfloat16* __restrict__ dout,
-                               __nv_bfloat16* __restrict__ dqkv, float* __restrict__ stats,
-                               int n, int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = heads * HD;
-  const long long pitch = 3LL * dim;
-  const long long off = (long long)b * n * pitch + (long long)h * HD;
-  const __nv_bfloat16* q = qkv + off;
-  dinox_attn_bwd::dq_tile<HD>(q, q + dim, q + 2 * dim, pitch,
-                              dout + (long long)b * n * dim + (long long)h * HD, dim, dqkv + off,
-                              pitch, stats + ((long long)b * heads + h) * 3 * n, n,
-                              blockIdx.x * BLOCK, scale, smem);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-packed_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                                const __nv_bfloat16* __restrict__ dout,
-                                const float* __restrict__ stats,
-                                __nv_bfloat16* __restrict__ dqkv, int n, int heads,
-                                float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int dim = heads * HD;
-  const long long pitch = 3LL * dim;
-  const long long off = (long long)b * n * pitch + (long long)h * HD;
-  const __nv_bfloat16* q = qkv + off;
-  dinox_attn_bwd::dkv_tile<HD>(q, q + dim, q + 2 * dim, pitch,
-                               dout + (long long)b * n * dim + (long long)h * HD, dim,
-                               stats + ((long long)b * heads + h) * 3 * n, dqkv + off + dim,
-                               dqkv + off + 2 * dim, pitch, n, blockIdx.x * BLOCK, scale, smem);
-}
-
-template <int HD>
-cudaError_t launch_dq(const void* qkv, const void* dout, void* dqkv, void* stats, int b, int n,
-                      int heads, float scale, cudaStream_t stream) {
-  using L = Layout<HD>;
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_bwd_dq_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::SMEM));
+cudaError_t packed_maps(const void* qkv, const void* dout, int b, int n, int heads,
+                        CUtensorMap* map_qkv, CUtensorMap* map_do) {
+  const cuuint32_t box[4] = {BOX_COLS, 1, BLOCK, 1};
+  const cuuint64_t row = 6ull * heads * HD;  // bytes of one packed qkv row
+  const cuuint64_t dims[4] = {HD, 3ull * heads, static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * HD, row, row * n};
+  const cudaError_t err = encode_map(map_qkv, qkv, dims, strides, box);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK - 1) / BLOCK, heads, b);
-  packed_attention_bwd_dq_kernel<HD><<<grid, THREADS, L::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(stats), n, heads, scale);
-  return cudaGetLastError();
+  const cuuint64_t drow = 2ull * heads * HD;  // bytes of one dO row
+  const cuuint64_t ddims[4] = {HD, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(n),
+                               static_cast<cuuint64_t>(b)};
+  const cuuint64_t dstrides[3] = {2ull * HD, drow, drow * n};
+  return encode_map(map_do, dout, ddims, dstrides, box);
 }
 
 template <int HD>
-cudaError_t launch_dkv(const void* qkv, const void* dout, const void* stats, void* dqkv, int b,
-                       int n, int heads, float scale, cudaStream_t stream) {
-  using L = Layout<HD>;
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_bwd_dkv_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L::SMEM));
+cudaError_t dq(const void* qkv, const void* dout, void* dqkv, void* stats, int b, int n,
+               int heads, float scale, cudaStream_t stream) {
+  CUtensorMap map, map_do;
+  const cudaError_t err = packed_maps<HD>(qkv, dout, b, n, heads, &map, &map_do);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BLOCK - 1) / BLOCK, heads, b);
-  packed_attention_bwd_dkv_kernel<HD><<<grid, THREADS, L::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(stats), static_cast<__nv_bfloat16*>(dqkv), n, heads, scale);
-  return cudaGetLastError();
+  return launch_dq<HD, true>(map, map, map, map_do, dqkv, stats, b, heads, n, scale, stream);
+}
+
+template <int HD>
+cudaError_t dkv(const void* qkv, const void* dout, const void* stats, void* dqkv, int b, int n,
+                int heads, float scale, cudaStream_t stream) {
+  CUtensorMap map, map_do;
+  const cudaError_t err = packed_maps<HD>(qkv, dout, b, n, heads, &map, &map_do);
+  if (err != cudaSuccess) return err;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dqkv);
+  const int dim = heads * HD;
+  return launch_dkv<HD, true>(map, map, map, map_do, stats, out + dim, out + 2 * dim, b, heads,
+                              n, scale, stream);
 }
 
 }  // namespace
@@ -125,11 +99,11 @@ extern "C" int dinox_packed_attention_bwd_dq_bf16(const void* qkv, const void* d
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return static_cast<int>(launch_dq<32>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
+      return static_cast<int>(dq<32>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
     case 64:
-      return static_cast<int>(launch_dq<64>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
+      return static_cast<int>(dq<64>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
     case 88:
-      return static_cast<int>(launch_dq<88>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
+      return static_cast<int>(dq<88>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -141,11 +115,28 @@ extern "C" int dinox_packed_attention_bwd_dkv_bf16(const void* qkv, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return static_cast<int>(launch_dkv<32>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
+      return static_cast<int>(dkv<32>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
     case 64:
-      return static_cast<int>(launch_dkv<64>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
+      return static_cast<int>(dkv<64>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
     case 88:
-      return static_cast<int>(launch_dkv<88>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
+      return static_cast<int>(dkv<88>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Registers per thread, dynamic shared memory per CTA (bytes) and resident
+// CTAs per SM of the dq (part 0) or dkv (part 1) kernel at head dim hd.
+// Returns a cudaError_t.
+extern "C" int dinox_packed_attention_bwd_occupancy(int hd, int part, int* regs, int* smem,
+                                                    int* ctas) {
+  switch (hd) {
+    case 32:
+      return static_cast<int>(occupancy_bwd<32, true>(part, regs, smem, ctas));
+    case 64:
+      return static_cast<int>(occupancy_bwd<64, true>(part, regs, smem, ctas));
+    case 88:
+      return static_cast<int>(occupancy_bwd<88, true>(part, regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -22,7 +22,13 @@ form ``_packed_bwd_dq_kernel`` + ``_packed_bwd_dkv_kernel``
 dq kernel over query tiles, which also saves each row's softmax statistics,
 then a dkv kernel over key tiles; together they write the packed
 ``(B, N, 3*dim)`` dqkv. Bound at the ViT-S training shape (192 views):
-269 MB moved against 50.2 GFLOP, memory-bound (80 us at 3.35 TB/s).
+269 MB moved against 50.2 GFLOP, memory-bound (80 us at 3.35 TB/s). Both run
+on the backward tile core ``csrc/attention_bwd_sm90.cuh`` (shared with
+kernel 5), built from the forward core's TMA and ``wgmma`` pieces: a
+producer warp streams K/V (dq) or Q/dO and the statistics (dkv) into a
+two-stage ring, one consumer warpgroup keeps S, dP, P, dS and the f32
+accumulators in registers; no atomics, so the same inputs give the same
+bits.
 
 :func:`flash_attention_packed` is differentiable through a
 ``torch.autograd.Function`` that saves only qkv, as the JAX package's VJP
@@ -36,8 +42,8 @@ Head-major ``(B, H, N, hd)`` attention, the JAX package's
 (kernel 4, ``_flash_fwd``) with ``csrc/mha_attention.cu`` and its VJP's
 ``_mha_bwd_kernel`` (kernel 5, ``_flash_bwd``) with
 ``csrc/mha_attention_bwd.cu``, a dq + dkv pair that runs the packed
-backward's tile code (``csrc/attention_bwd_tile.cuh``) on head-major
-strides. Kernel 4 keeps ``_mha_kernel``'s rounding points, not kernel 1's:
+backward's tile core (``csrc/attention_bwd_sm90.cuh``) through head-major
+tensor maps. Kernel 4 keeps ``_mha_kernel``'s rounding points, not kernel 1's:
 the scale multiplies the f32 logits and P is normalised in f32, then
 rounded, then multiplied by V; its plain version
 :func:`mha_attention_reference` is the JAX package's ``_xla_sdpa`` /
@@ -74,20 +80,32 @@ _SIGNATURES = {
 }
 
 
+def _occupancy(name: str, symbol: str, args: tuple[int, ...], device) -> dict[str, int]:
+    fn = getattr(_build.load(name), symbol)
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I)] * 3
+    fn.restype = _I
+    vals = [_I() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(*args, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"occupancy query of {name} failed: cudaError {err}")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), (v.value for v in vals)))
+
+
 def forward_occupancy(name: str, hd: int, device: torch.device | str = "cuda") -> dict[str, int]:
     """Registers per thread, dynamic shared memory per CTA (bytes) and
     resident CTAs per SM of the forward kernel of ``csrc/<name>.cu``
     (``packed_attention``: kernel 1, ``mha_attention``: kernel 4) at head dim
     *hd*, from the CUDA occupancy API on *device*."""
-    fn = getattr(_build.load(name), f"dinox_{name}_fwd_occupancy")
-    fn.argtypes = [_I] + [ctypes.POINTER(_I)] * 3
-    fn.restype = _I
-    vals = [_I() for _ in range(3)]
-    with torch.cuda.device(device):
-        err = fn(hd, *(ctypes.byref(v) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"occupancy query of {name} failed: cudaError {err}")
-    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), (v.value for v in vals)))
+    return _occupancy(name, f"dinox_{name}_fwd_occupancy", (hd,), device)
+
+
+def backward_occupancy(name: str, hd: int, part: str, device: torch.device | str = "cuda"
+                       ) -> dict[str, int]:
+    """The same for the *part* (``"dq"`` or ``"dkv"``) kernel of the
+    backward pair ``csrc/<name>.cu`` (``packed_attention_bwd``: kernels 2/3,
+    ``mha_attention_bwd``: kernel 5)."""
+    return _occupancy(name, f"dinox_{name}_occupancy", (hd, ("dq", "dkv").index(part)), device)
 
 
 def _split_heads(t: torch.Tensor, parts: int, heads: int) -> tuple[torch.Tensor, ...]:

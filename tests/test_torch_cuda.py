@@ -4,8 +4,9 @@ through the kernel against plain attention, a training micro-step through
 the kernels against plain attention, the fused half-block paths (kernels
 6, 7 and 8) against their plain versions and the unfused model, the
 head-major pair (kernels 4 and 5) with the sdpa dispatch, and the forward
-tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh) at the ragged
-edges of its tiling, with equal bits on two runs and no spills.
+tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh) and the backward
+tile core of kernels 2/3 and 5 (csrc/attention_bwd_sm90.cuh) at the ragged
+edges of their tiling, with equal bits on two runs and no spills.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -481,10 +482,102 @@ def test_mha_attention_never_reads_past_the_operand(card):
     assert (got.float() - mha_attention_reference(q, k, v).float()).abs().max().item() < TOL
 
 
-@pytest.mark.parametrize("name", ["packed_attention", "mha_attention"])
-def test_forward_kernels_do_not_spill(card, name):
-    """ptxas -v of the library: every instantiation (hd 32, 64, 88) with 0
-    bytes of spill stores."""
+# -- the backward tile core (kernels 2/3 and 5) --------------------------------
+
+
+def _close_to_plain_backward(got, want) -> None:
+    """Each gradient within BWD_TOL and BWD_REL of its largest plain value
+    (<=: at N = 1 dq is exactly 0 in both)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        err = (g.float() - w.float()).abs().max().item()
+        assert err < BWD_TOL and err <= BWD_REL * w.float().abs().max().item()
+
+
+def _packed_grads(dqkv: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    return dqkv.chunk(3, dim=-1)
+
+
+@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_packed_attention_backward_ragged_edges_match_plain(card, n, hd):
+    qkv = _packed_edge(card, 2, n, 2, hd)
+    do = torch.randn((2, n, 2 * hd), generator=card, device="cuda").to(torch.bfloat16)
+    before = packed_attention_bwd_dq.launches, packed_attention_bwd_dkv.launches
+    got, again = packed_attention_backward(qkv, do, 2), packed_attention_backward(qkv, do, 2)
+    torch.cuda.synchronize()
+    assert (packed_attention_bwd_dq.launches, packed_attention_bwd_dkv.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    _close_to_plain_backward(_packed_grads(got),
+                             _packed_grads(packed_attention_backward_reference(qkv, do, 2)))
+
+
+@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_mha_attention_backward_ragged_edges_match_plain(card, n, hd):
+    """Also bit-equal to kernel 2 on the same data laid out packed."""
+    q, k, v, do = _mha_inputs(card, (2, 2, n, hd), 4)
+    got, again = mha_attention_backward(q, k, v, do), mha_attention_backward(q, k, v, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close_to_plain_backward(got, mha_attention_backward_reference(q, k, v, do))
+    tokens = lambda t: t.transpose(1, 2).reshape(2, n, 2 * hd)  # noqa: E731
+    packed = packed_attention_backward(torch.cat([tokens(q), tokens(k), tokens(v)], -1),
+                                       tokens(do).contiguous(), 2)
+    assert torch.equal(packed, torch.cat([tokens(g) for g in got], -1))
+
+
+@pytest.mark.parametrize("shape", FWD_BIT_SHAPES)
+def test_packed_attention_backward_repeats_bit_for_bit(card, shape):
+    b, n, heads, hd = shape
+    qkv = _packed_edge(card, b, n, heads, hd)
+    do = torch.randn((b, n, heads * hd), generator=card, device="cuda").to(torch.bfloat16)
+    runs = [packed_attention_backward(qkv, do, heads) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    _close_to_plain_backward(_packed_grads(runs[0]),
+                             _packed_grads(packed_attention_backward_reference(qkv, do, heads)))
+
+
+@pytest.mark.parametrize("shape", FWD_BIT_SHAPES)
+def test_mha_attention_backward_repeats_bit_for_bit(card, shape):
+    b, n, heads, hd = shape
+    q, k, v, do = _mha_inputs(card, (b, heads, n, hd), 4)
+    runs = [mha_attention_backward(q, k, v, do) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    _close_to_plain_backward(runs[0], mha_attention_backward_reference(q, k, v, do))
+
+
+def test_packed_attention_backward_never_reads_past_the_operand(card):
+    """Rows past N = 261 of qkv and dO, read by the ragged last tiles, never
+    reach a softmax or a product: NaN bytes just past them change nothing."""
+    qkv = _packed_edge(card, 2, 261, 6, 64)
+    do = torch.randn((2, 261, 384), generator=card, device="cuda").to(torch.bfloat16)
+    got = packed_attention_backward(_nan_tailed(qkv), _nan_tailed(do), 6)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, packed_attention_backward(qkv, do, 6))
+    _close_to_plain_backward(_packed_grads(got),
+                             _packed_grads(packed_attention_backward_reference(qkv, do, 6)))
+
+
+def test_mha_attention_backward_never_reads_past_the_operand(card):
+    q, k, v, do = _mha_inputs(card, (2, 6, 261, 64), 4)
+    got = mha_attention_backward(*(_nan_tailed(t) for t in (q, k, v, do)))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, mha_attention_backward(q, k, v, do)))
+    _close_to_plain_backward(got, mha_attention_backward_reference(q, k, v, do))
+
+
+@pytest.mark.parametrize("name, count", [("packed_attention", 3), ("mha_attention", 3),
+                                         ("packed_attention_bwd", 6), ("mha_attention_bwd", 6)])
+def test_forward_kernels_do_not_spill(card, name, count):
+    """ptxas -v of the library: every instantiation with 0 bytes of spill
+    stores; the forwards at hd 32, 64, 88, the backward pairs' dq and dkv
+    kernels at each of them."""
     _build.load(name)
     spills = re.findall(r"(\d+) bytes spill stores", _build.build_log(name))
-    assert len(spills) == 3 and all(int(x) == 0 for x in spills)
+    assert len(spills) == count and all(int(x) == 0 for x in spills)
