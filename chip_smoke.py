@@ -30,8 +30,12 @@ Run from the repository root:  python3 chip_smoke.py
    steps and one profiled step, every loss finite, and exact launch counts
    per step (forward 2 x depth, each backward kernel depth).
 9. (Run right after 3.) Holds the fused attention half-block kernel (TPU
-   kernel 6) against its plain version at five shapes (y, qkv and attn
-   within 0.05), the fused MLP forward (kernel 7) at three within 0.02, and
+   kernel 6: LN + QKV and proj + residual on the GEMM core gemm_sm90.cuh
+   around kernel 1's attention core) against its plain version at five
+   shapes and at the ragged edges of its row blocks and widths (B*N 1, 63,
+   64, 65; dim 96 and 1408): y, qkv and attn within 0.05, twice with equal
+   bits, attn bit-equal to kernel 1 on the kernel's own qkv; the fused MLP
+   forward (kernel 7) at three within 0.02, and
    the fused MLP backward's three launches (kernel 8) at the same three
    within 2e-2 of each output's largest value, with equal bits on two runs.
 10. Serves the same hub dir with EmbedService(fused_attn=True) and the same
@@ -59,6 +63,10 @@ Run from the repository root:  python3 chip_smoke.py
    composition of each fused half-block, and its bound (kernel 1 at the
    serving shape, kernel 4 at the bring-up shape, the rest at the training
    shape, kernels 1, 4 and 6 at both), and prints them as one JSON line. For
+   kernel 6 also each of its three launches' device time (torch.profiler)
+   beside its own bound, the call's back-to-back time, the GEMM launches'
+   registers, shared memory, CTAs per SM and grid split, and the achieved
+   TFLOP/s and TB/s. For
    kernels 1, 4 and both backward pairs (each of their dq and dkv kernels)
    it also prints what sets the time: registers, shared memory per CTA and
    resident CTAs per SM (the occupancy API), the time of back-to-back
@@ -103,6 +111,7 @@ from dinox_torch.utils.roofline import (
     attention_bwd_work,
     attention_fwd_work,
     bound_ms,
+    fused_attn_parts_work,
     fused_attn_work,
     fused_mlp_bwd_work,
     fused_mlp_fwd_work,
@@ -137,6 +146,14 @@ FUSED_TOL = 0.05
 FUSED_ATTN_SHAPES = [(8, 261, 384, 6), (32, 261, 384, 6), (192, 261, 384, 6),
                      (2, 261, 1408, 16), (4, 261, 512, 16)]
 FUSED_SERVING_SHAPE, FUSED_TRAINING_SHAPE = FUSED_ATTN_SHAPES[1], FUSED_ATTN_SHAPES[2]
+# Kernel 6's ragged edges, (b, n, dim, heads): B*N = 1, 63, 64, 65 (the edges
+# of a 64-row warpgroup and of a 128-row GEMM block), dim 96 (a last 32-deep
+# K step) and ViT-G's 1408 (one warpgroup, no multiple of 128) at 65 rows.
+FUSED_EDGES = [(1, 1, 384, 6), (1, 63, 384, 6), (1, 64, 384, 6), (1, 65, 384, 6),
+               (1, 65, 96, 3), (1, 65, 1408, 16)]
+# Kernel 6's three launches, by substrings of their kernels' names.
+FUSED_ATTN_PARTS = {"qkv": "fused_attn_block_qkv", "attention": "attention_fwd_sm90",
+                    "proj": "fused_attn_block_proj"}
 # Kernels 7 and 8: (rows, C) with hidden 4C: 8 and 192 views of ViT-S, and
 # ViT-G width on 2 views.
 MLP_TOL = 0.02
@@ -163,7 +180,7 @@ KERNEL_KINDS = [
     ("attention forward kernel", ("attention_fwd_sm90",)),
     ("attention backward dq kernel", ("attention_bwd_sm90_dq",)),
     ("attention backward dkv kernel", ("attention_bwd_sm90_dkv",)),
-    ("fused attention half-block kernel", ("fused_attn_block",)),
+    ("fused attention half-block kernel (LN + QKV and proj launches)", ("fused_attn_block",)),
     ("fused MLP forward kernel", ("fused_mlp_fwd",)),
     ("fused MLP backward rows kernel", ("fused_mlp_bwd_rows",)),
     ("fused MLP backward weights kernel", ("fused_mlp_bwd_weights",)),
@@ -174,6 +191,12 @@ KERNEL_KINDS = [
     ("dtype casts", ("copy_kernel",)),
     ("elementwise", ("elementwise_kernel",)),
 ]
+
+
+# In the fused step the attention forward launches are kernel 6's second
+# launch (kernel 1's core on the qkv of its first).
+FUSED_KERNEL_KINDS = [("fused attention half-block kernel, attention launch (kernel 1's core)",
+                       ("attention_fwd_sm90",))] + KERNEL_KINDS[1:]
 
 
 def fail(msg: str) -> None:
@@ -590,8 +613,8 @@ def check_step(models: tuple, label: str) -> None:
         fail(f"the training step ({label}) disagrees")
 
 
-def report_training(res: dict, cfg, card: str, steps: int) -> None:
-    """Rate, MFU, busy share and device time by kind of a bench_train_step
+def report_training(res: dict, cfg, card: str, steps: int, kinds: list = KERNEL_KINDS) -> None:
+    """Rate, MFU, busy share and device time by *kinds* of a bench_train_step
     result with a profile."""
     peak = card_peaks(card)[0]
     print(f"training rate: {res['slices_per_s']:.2f} slices/s ({res['step_ms']:.2f} ms per step "
@@ -606,7 +629,7 @@ def report_training(res: dict, cfg, card: str, steps: int) -> None:
         print(f"  {item['ms']:8.3f} ms  x{item['count']:<4d} {item['name'][:90]}", flush=True)
     by_kind: dict[str, list] = {}
     for item in prof["top"]:
-        kind = next((k for k, keys in KERNEL_KINDS if any(w in item["name"] for w in keys)), "other")
+        kind = next((k for k, keys in kinds if any(w in item["name"] for w in keys)), "other")
         acc = by_kind.setdefault(kind, [0.0, 0])
         acc[0] += item["ms"]
         acc[1] += item["count"]
@@ -656,7 +679,7 @@ def train_fused(card: str) -> dict[str, int]:
           f"and dq/dkv depth, packed forward 0, per step)", flush=True)
     if counts != want:
         fail("the fused training step did not run every half-block through the kernels exactly once")
-    report_training(res, cfg, card, FUSED_STEPS)
+    report_training(res, cfg, card, FUSED_STEPS, FUSED_KERNEL_KINDS)
     return counts
 
 
@@ -739,23 +762,82 @@ def time_backward(peaks: tuple[float, float], shape: tuple[int, int, int, int] =
 
 
 def check_fused_attn() -> float:
-    """Kernel 6 against its plain version at FUSED_ATTN_SHAPES, all three
-    outputs (y, qkv, attn), inputs at the JAX check's scales. Returns the
-    worst error."""
+    """Kernel 6 against its plain version at FUSED_ATTN_SHAPES and
+    FUSED_EDGES, all three outputs (y, qkv, attn), inputs at the JAX check's
+    scales: each shape twice with equal bits, and attn bit-equal to kernel 1
+    on the kernel's own qkv. Returns the worst error."""
     worst = 0.0
-    for i, (b, n, dim, heads) in enumerate(FUSED_ATTN_SHAPES):
+    for i, (b, n, dim, heads) in enumerate(FUSED_ATTN_SHAPES + FUSED_EDGES):
         args = fused_block_inputs(b, n, dim, torch.device("cuda"), seed=SEED + 10 + i)
-        got = fab.fused_attn_block_forward(*args, heads)
+        got, again = (fab.fused_attn_block_forward(*args, heads) for _ in range(2))
         torch.cuda.synchronize()
         want = fab.fused_attn_block_reference(*args, heads)
         errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        as_kernel_1 = torch.equal(got[2], flash_attention_packed(got[1], heads))
         print(f"kernel check fused_attn_block b={b} n={n} dim={dim} heads={heads}: max_abs_err "
-              f"y {errs[0]:.3e}, qkv {errs[1]:.3e}, attn {errs[2]:.3e} (tol {FUSED_TOL})",
-              flush=True)
+              f"y {errs[0]:.3e}, qkv {errs[1]:.3e}, attn {errs[2]:.3e} (tol {FUSED_TOL}); two runs "
+              f"bit-equal: {same}; attn bit-equal to kernel 1 on its qkv: {as_kernel_1}", flush=True)
         if not np.isfinite(errs).all() or max(errs) >= FUSED_TOL:
             fail(f"fused_attn_block disagrees with its plain version at {(b, n, dim, heads)}")
+        if not same or not as_kernel_1:
+            fail(f"fused_attn_block's bits are not repeatable or not kernel 1's at {(b, n, dim, heads)}")
         worst = max(worst, *errs)
     return worst
+
+
+def fused_attn_parts_ms(args: tuple, heads: int, calls: int = 20) -> dict[str, float]:
+    """Device ms of each of kernel 6's three launches: the mean over the
+    launches that torch.profiler recorded in *calls* calls."""
+    fab.fused_attn_block_forward(*args, heads)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fab.fused_attn_block_forward(*args, heads)
+        torch.cuda.synchronize()
+    out = {}
+    for part, key in FUSED_ATTN_PARTS.items():
+        events = [e for e in prof.key_averages() if key in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in events)  # the trace may miss a launch at its start
+        if not calls // 2 <= count <= calls:
+            fail(f"the profile of {calls} kernel 6 calls holds {count} launches of {key}")
+        out[part] = sum(e.self_device_time_total for e in events) / count / 1e3
+    return out
+
+
+def what_sets_kernel_6s_time(b: int, n: int, dim: int, heads: int, args: tuple, label: str,
+                             peaks: tuple[float, float]) -> dict:
+    """Kernel 6's back-to-back time, each launch's device time beside its own
+    bound with its achieved rates, and the GEMM launches' occupancy and
+    grid split. Returns {"device_ms", "parts": {part: {"ms", "bound_ms"}}}."""
+    device_ms = stream_ms(lambda: fab.fused_attn_block_forward(*args, heads))
+    parts_ms = fused_attn_parts_ms(args, heads)
+    work = fused_attn_parts_work(b, n, dim, heads)
+    parts = {}
+    for part, ms in parts_ms.items():
+        moved, flops = work[part]
+        bound = bound_ms(moved, flops, peaks)
+        if part == "attention":
+            occ, split = fa.forward_occupancy("packed_attention", dim // heads), "kernel 1's grid"
+        else:
+            occ = fab.fused_attn_block_occupancy(part, dim)
+            grid = fab.fused_attn_block_grid(part, b * n, dim)
+            split = (f"grid {grid['row_blocks']} row blocks x {grid['column_groups']} column "
+                     f"groups of {grid['tiles_per_cta']} tiles")
+        print(f"fused_attn_block launch {part} at {(b, n, dim, heads)} ({label}): {ms:.4f} ms "
+              f"device, bound {bound[0]:.4f} ms ({bound[1]}: {moved / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP), {100 * bound[0] / ms:.1f}% of it; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {moved / ms / 1e9:.3f} TB/s; "
+              f"{occ['registers']} registers, {occ['smem_bytes']} B of shared memory per CTA, "
+              f"{occ['ctas_per_sm']} CTAs per SM; {split}", flush=True)
+        parts[part] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+    total = sum(p["ms"] for p in parts.values())
+    moved, flops = fused_attn_work(b, n, dim, heads)
+    print(f"fused_attn_block at {(b, n, dim, heads)} ({label}): {device_ms:.4f} ms back to back "
+          f"({total:.4f} ms in its three launches; bound {bound_ms(moved, flops, peaks)[0]:.4f} ms "
+          f"fused, {sum(p['bound_ms'] for p in parts.values()):.4f} ms by launch): "
+          f"{flops / device_ms / 1e9:.1f} TFLOP/s, {moved / device_ms / 1e9:.3f} TB/s", flush=True)
+    return {"device_ms": device_ms, "parts": parts}
 
 
 def check_fused_mlp() -> tuple[float, float]:
@@ -813,7 +895,8 @@ def time_fused(peaks: tuple[float, float]) -> dict[str, dict]:
               f"{bound[0]:.4f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB), plain "
               f"{plain:.4f} ms, unfused composition {unfused:.4f} ms", flush=True)
         out[f"attn_{label}"] = {"ms": kern, "plain_ms": plain, "unfused_ms": unfused, "bound": bound,
-                                "shape": [b, n, dim, heads]}
+                                "shape": [b, n, dim, heads],
+                                **what_sets_kernel_6s_time(b, n, dim, heads, args, label, peaks)}
     # Kernel 6's composed backward at the training shape (plain products around
     # the dq/dkv pair), and its three products with an f32 result from bf16
     # operands (dwproj, dwqkv, dln) through torch.mm(out_dtype=float32).
@@ -1132,10 +1215,13 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes the fused half-block
             "unfused_ms": t["unfused_ms"],
         }
-        if name == "fused_attn_block":
+        if name == "fused_attn_block":  # three launches: parts holds each one's device time
             serving = fused["attn_serving"]
+            entry["device_ms"] = t["device_ms"]
+            entry["parts"] = {p: {"launches": count, **v} for p, v in t["parts"].items()}
             entry["serving"] = {"shape": serving["shape"], "ms": serving["ms"],
-                                "bound_ms": serving["bound"][0], "unfused_ms": serving["unfused_ms"]}
+                                "bound_ms": serving["bound"][0], "unfused_ms": serving["unfused_ms"],
+                                "device_ms": serving["device_ms"], "parts": serving["parts"]}
             entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
         if name == "fused_mlp_bwd":  # three launches: ms is their sum, parts each one's
             entry["parts"] = {p: {"launches": fused_counts[p], "ms": t["parts"][p]}

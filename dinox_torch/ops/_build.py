@@ -136,3 +136,18 @@ def launch(name: str, symbol: str, argtypes: list, device: torch.device, *args) 
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {err}")
+
+
+def query(name: str, symbol: str, args: tuple[int, ...], device) -> tuple[int, int, int]:
+    """Call the C query *symbol* of ``csrc/<name>.cu``, which takes the int
+    *args* and writes three ints (an occupancy or a grid), on *device*;
+    raise unless it returns 0."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(*args, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {err}")
+    return tuple(v.value for v in vals)

@@ -576,6 +576,20 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, const cuuint64
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The map of a packed (B, N, 3 * heads * hd) qkv: (hd, 3 * heads, N, B), q, k
+// and v of head h in slots h, heads + h and 2 * heads + h. Its innermost
+// extent is exactly hd, so hd 88 is zero-padded to 96 without touching the
+// next head.
+template <int HD>
+cudaError_t encode_packed_map(CUtensorMap* map, const void* qkv, int b, int n, int heads) {
+  const cuuint64_t row = 6ull * heads * HD;  // bytes of one packed row
+  const cuuint64_t dims[4] = {HD, 3ull * heads, static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * HD, row, row * n};
+  const cuuint32_t box[4] = {BOX_COLS, 1, BLOCK_N, 1};
+  return encode_map(map, qkv, dims, strides, box);
+}
+
 template <int HD, Rounding R, bool PACKED>
 cudaError_t launch_fwd(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, void* out,
                        int b, int heads, int n, float scale, cudaStream_t stream) {

@@ -33,13 +33,8 @@ using namespace dinox_fwd;
 template <int HD>
 cudaError_t launch(const void* qkv, void* out, int b, int n, int heads, float scale,
                    cudaStream_t stream) {
-  const cuuint64_t row = 6ull * heads * HD;  // bytes of one packed row
-  const cuuint64_t dims[4] = {HD, 3ull * heads, static_cast<cuuint64_t>(n),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {2ull * HD, row, row * n};
-  const cuuint32_t box[4] = {BOX_COLS, 1, BLOCK_N, 1};
   CUtensorMap map;
-  const cudaError_t err = encode_map(&map, qkv, dims, strides, box);
+  const cudaError_t err = encode_packed_map<HD>(&map, qkv, b, n, heads);
   if (err != cudaSuccess) return err;
   return launch_fwd<HD, Rounding::Packed, true>(map, map, map, out, b, heads, n, scale, stream);
 }

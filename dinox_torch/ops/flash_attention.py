@@ -81,15 +81,8 @@ _SIGNATURES = {
 
 
 def _occupancy(name: str, symbol: str, args: tuple[int, ...], device) -> dict[str, int]:
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(_I)] * 3
-    fn.restype = _I
-    vals = [_I() for _ in range(3)]
-    with torch.cuda.device(device):
-        err = fn(*args, *(ctypes.byref(v) for v in vals))
-    if err != 0:
-        raise RuntimeError(f"occupancy query of {name} failed: cudaError {err}")
-    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), (v.value for v in vals)))
+    vals = _build.query(name, symbol, args, device)
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), vals))
 
 
 def forward_occupancy(name: str, hd: int, device: torch.device | str = "cuda") -> dict[str, int]:

@@ -3,13 +3,21 @@ hand-written Hopper kernel and its plain PyTorch version.
 
 Forward: replaces ``_fused_kernel`` (dinox_tpu/ops/fused_attn_block.py,
 reached through ``_call_fused`` and ``fused_attn_block``). The kernel is
-``csrc/fused_attn_block.cu``: one launch in which a cluster of CTAs owns one
-view and runs three phases separated by cluster barriers (LN + QKV
-projection, attention per (head, query tile), out-projection + residual).
-It writes y and, for the backward, qkv and the attention output, as the TPU
-kernel does. Bound on an H100 SXM at the ViT-S training shape (192 views,
-N=261, dim 384, 6 heads): 79.2 GFLOP against 232 MB, so the tensor cores
-bound it (0.080 ms at 989 TFLOP/s).
+``csrc/fused_attn_block.cu``: one C entry point that makes three launches
+in order on the current stream: LN + QKV over the flattened B*N rows and
+then out-projection + bias + residual on the wgmma + TMA GEMM core
+``csrc/gemm_sm90.cuh`` (a LayerNorm prologue run once per row block, bias
+and residual epilogues leaving by TMA stores), and between them kernel 1's
+attention core ``csrc/attention_fwd_sm90.cuh`` on the qkv just written, so
+``attn`` has kernel 1's bits on that qkv. It writes y and, for the
+backward, qkv and the attention output, as the TPU kernel does. Bound on an H100 SXM at the
+ViT-S training shape (192 views, N=261, dim 384, 6 heads): 79.2 GFLOP
+against 232 MB, so the tensor cores bound it (0.080 ms at 989 TFLOP/s).
+The three launches read qkv and attn back from device memory, so their
+own bounds sum to 0.127 ms (``utils.roofline.fused_attn_parts_work``).
+The GEMM core holds a 64- or 128-row block of x whole along the width in
+shared memory, so the kernel takes dim <= ``MAX_DIM`` (1408, ViT-G's, the
+widest model of the repo).
 
 Rounding points (the TPU kernel's, not the port's unfused blocks'): LN in
 f32 with the fast variance E[x^2] - E[x]^2 clipped at 0, rounded once to the
@@ -29,7 +37,8 @@ backward. The products are plain matmuls, as XLA's were; ``dwproj``,
 Weights are taken in the port's ``(out, in)`` layout: ``wqkv`` (3*dim, dim)
 is the JAX argument ``wqkv`` (dim, 3*dim) transposed, ``wproj`` (dim, dim)
 the JAX ``wproj`` transposed; ``gamma``, ``beta``, ``bqkv`` and ``bproj`` are
-the same vectors. Launch count: ``fused_attn_block.launches``.
+the same vectors. Launch count: ``fused_attn_block.launches``, one per
+call (its attention launch does not count as ``flash_attention_packed``'s).
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from dinox_torch.ops.flash_attention import (
 )
 
 LN_EPS = 1e-5
+MAX_DIM = 1408  # the widest x row block the GEMM core holds in shared memory (gemm_sm90.cuh MAX_K)
+GEMM_PARTS = ("qkv", "proj")  # the two GEMM launches of the kernel, in their order
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -102,12 +113,35 @@ def _check(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads: int) -> int:
     hd = dim // heads
     if hd not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not supported by the kernel (supported: {SUPPORTED_HEAD_DIMS})")
+    if dim > MAX_DIM:
+        raise ValueError(f"dim {dim} is wider than the kernel takes ({MAX_DIM})")
     bf16, f32 = torch.bfloat16, torch.float32
     _build.check_operands({"x": (x, x.shape, bf16), "gamma": (gamma, (dim,), f32),
                            "beta": (beta, (dim,), f32), "wqkv": (wqkv, (3 * dim, dim), bf16),
                            "bqkv": (bqkv, (3 * dim,), f32), "wproj": (wproj, (dim, dim), bf16),
                            "bproj": (bproj, (dim,), f32)}, x.device, 16, "fused attention")
     return hd
+
+
+def fused_attn_block_occupancy(part: str, dim: int, device: torch.device | str = "cuda"
+                               ) -> dict[str, int]:
+    """Registers per thread, dynamic shared memory per CTA (bytes) and
+    resident CTAs per SM of the GEMM launch *part* (``"qkv"`` or ``"proj"``)
+    at width *dim*, from the CUDA occupancy API on *device*. The attention
+    launch is kernel 1's: ``flash_attention.forward_occupancy``."""
+    vals = _build.query("fused_attn_block", "dinox_fused_attn_block_occupancy",
+                        (GEMM_PARTS.index(part), dim), device)
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), vals))
+
+
+def fused_attn_block_grid(part: str, rows: int, dim: int, device: torch.device | str = "cuda"
+                          ) -> dict[str, int]:
+    """The grid of the GEMM launch *part* over *rows* = B*N rows at width
+    *dim*: row blocks, column groups (the split that fills every SM) and
+    column tiles per CTA."""
+    vals = _build.query("fused_attn_block", "dinox_fused_attn_block_grid",
+                        (GEMM_PARTS.index(part), rows, dim), device)
+    return dict(zip(("row_blocks", "column_groups", "tiles_per_cta"), vals))
 
 
 def fused_attn_block_forward(x, gamma, beta, wqkv, bqkv, wproj, bproj, heads: int):

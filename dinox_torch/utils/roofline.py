@@ -9,8 +9,9 @@ that reach ``pl.pallas_call``) at the shapes of the ViT-S training step
 (2 x 96 views, N=261, dim 384, 6 heads), kernel 3 at the ViT-G shape it is
 taken for (2 views, dim 1408, 16 heads), and kernel 4 also at the
 bring-up shape of ``python -m dinox_torch.validate_attention`` (batch 8,
-8 heads, N=1024, head dim 64), on the named card's published peaks (H100
-SXM by default).
+8 heads, N=1024, head dim 64), and each of the three launches of the
+port's kernel 6 beside kernel 6's own bound, on the named card's published
+peaks (H100 SXM by default).
 """
 
 from __future__ import annotations
@@ -51,6 +52,19 @@ def fused_attn_work(b: int, n: int, dim: int, heads: int) -> tuple[float, float]
     params = F32 * (2 * dim + 3 * dim + dim) + BF16 * (3 * dim * dim + dim * dim)
     moved = BF16 * b * n * (dim + dim + 3 * dim + dim) + params
     return moved, 2.0 * b * n * dim * 4 * dim + 4.0 * b * heads * n * n * hd
+
+
+def fused_attn_parts_work(b: int, n: int, dim: int, heads: int) -> dict[str, tuple[float, float]]:
+    """The three launches of the port's kernel 6, each alone: ``qkv`` (x,
+    LN parameters, Wqkv and bqkv in; qkv out), ``attention`` (qkv in, attn
+    out) and ``proj`` (attn, x, Wproj and bproj in; y out). qkv and attn
+    are written and read back, so the parts' bounds sum to more than
+    :func:`fused_attn_work`'s."""
+    rows = b * n
+    qkv = (BF16 * rows * (dim + 3 * dim) + F32 * (2 * dim + 3 * dim) + BF16 * 3 * dim * dim,
+           2.0 * rows * dim * 3 * dim)
+    proj = (BF16 * rows * 3 * dim + F32 * dim + BF16 * dim * dim, 2.0 * rows * dim * dim)
+    return {"qkv": qkv, "attention": attention_fwd_work(b, n, dim, heads), "proj": proj}
 
 
 def fused_mlp_fwd_work(rows: int, dim: int, hidden: int) -> tuple[float, float]:
@@ -101,6 +115,11 @@ def main(argv: list[str] | None = None) -> int:
     for r in tpu_kernel_bounds(peaks):
         print(f"{r['kernel']}  {r['function']:48s} {str(r['shape']):22s} {r['mbytes']:9.1f} MB "
               f"{r['gflop']:8.2f} GFLOP  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    step = (192, 261, 384, 6)
+    for part, (moved, flops) in fused_attn_parts_work(*step).items():
+        ms, by = bound_ms(moved, flops, peaks)
+        print(f"6  {'  launch ' + part:48s} {str(step):22s} {moved / 1e6:9.1f} MB "
+              f"{flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
     moved, flops = attention_fwd_work(*VALIDATE_SHAPE)
     ms, by = bound_ms(moved, flops, peaks)
     print(f"4  {'_mha_kernel at the validate shape':48s} {str(VALIDATE_SHAPE):22s} "

@@ -37,9 +37,11 @@ def test_every_source_of_the_package_has_a_key():
     names = {src.stem for src in _build.sources()}
     assert {"packed_attention", "packed_attention_bwd", "fused_attn_block", "fused_mlp",
             "fused_mlp_bwd", "mha_attention", "mha_attention_bwd"} <= names
-    assert (_build.CSRC / "attention_tile.cuh").exists()
+    assert (_build.CSRC / "gemm_sm90.cuh").exists()
     assert (_build.CSRC / "attention_bwd_sm90.cuh").exists()
     assert not (_build.CSRC / "attention_bwd_tile.cuh").exists()
+    assert '#include "gemm_sm90.cuh"' in (_build.CSRC / "fused_attn_block.cu").read_text()
+    assert not any("attention_tile.cuh" in p.read_text() for p in _build.CSRC.iterdir())
     for pair in ("packed_attention_bwd", "mha_attention_bwd"):
         assert '#include "attention_bwd_sm90.cuh"' in (_build.CSRC / f"{pair}.cu").read_text()
     assert len({_build._target(src) for src in _build.sources()}) == len(names)

@@ -3,10 +3,11 @@ its plain PyTorch version, the wrappers' input checks, the served forward
 through the kernel against plain attention, a training micro-step through
 the kernels against plain attention, the fused half-block paths (kernels
 6, 7 and 8) against their plain versions and the unfused model, the
-head-major pair (kernels 4 and 5) with the sdpa dispatch, and the forward
-tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh) and the backward
-tile core of kernels 2/3 and 5 (csrc/attention_bwd_sm90.cuh) at the ragged
-edges of their tiling, with equal bits on two runs and no spills.
+head-major pair (kernels 4 and 5) with the sdpa dispatch, the forward
+tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh), the backward
+tile core of kernels 2/3 and 5 (csrc/attention_bwd_sm90.cuh) and kernel 6's
+three launches (the GEMM core csrc/gemm_sm90.cuh around kernel 1's core) at
+the ragged edges of their tiling, with equal bits on two runs and no spills.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -208,6 +209,9 @@ def test_fused_attn_block_rejects_what_it_cannot_take(card):
         fused_attn_block_forward(x.transpose(0, 1), g, b, wq, bq, wp, bp, 6)  # not contiguous
     with pytest.raises(ValueError):
         fused_attn_block_forward(x, g, b, wq[:384], bq, wp, bp, 6)  # shape
+    wide = fused_block_inputs(1, 4, 1600, torch.device("cuda"))
+    with pytest.raises(ValueError):
+        fused_attn_block_forward(*wide, 25)  # dim 1600 > MAX_DIM
 
 
 @pytest.mark.parametrize("shape", MLP_SHAPES)
@@ -572,12 +576,64 @@ def test_mha_attention_backward_never_reads_past_the_operand(card):
     _close_to_plain_backward(got, mha_attention_backward_reference(q, k, v, do))
 
 
+# -- kernel 6: the GEMM core around kernel 1's core ----------------------------
+
+# (b, n, dim, heads): B*N = 1, 63, 64, 65 (the edges of a 64-row warpgroup
+# and of a 128-row GEMM block), the serving bucket 32 (8352 rows, a ragged
+# last block) and the training shape (50112 rows).
+FUSED_ROW_SHAPES = [(1, 1, 384, 6), (1, 63, 384, 6), (1, 64, 384, 6), (1, 65, 384, 6),
+                    (32, 261, 384, 6), (192, 261, 384, 6)]
+# (dim, heads): ViT-S, hd 32, ViT-G (one 64-row warpgroup; 1408 is no
+# multiple of 128) and dim 96 (not a multiple of 64: a last 32-deep step).
+FUSED_DIMS = [(384, 6), (512, 16), (1408, 16), (96, 3)]
+
+
+def _fused_two_runs(args, heads):
+    """Kernel 6 twice on *args*: equal bits, each output within FUSED_TOL of
+    the plain version, attn bit-equal to kernel 1 on the kernel's own qkv,
+    one count per call and no count of kernel 1 from the attention launch."""
+    before = fused_attn_block.launches, flash_attention_packed.launches
+    got = fused_attn_block_forward(*args, heads)
+    again = fused_attn_block_forward(*args, heads)
+    torch.cuda.synchronize()
+    assert (fused_attn_block.launches, flash_attention_packed.launches) == (before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, fused_attn_block_reference(*args, heads)):
+        assert g.shape == w.shape and (g.float() - w.float()).abs().max().item() < FUSED_TOL
+    assert torch.equal(got[2], flash_attention_packed(got[1], heads))
+    return got
+
+
+@pytest.mark.parametrize("shape", FUSED_ROW_SHAPES)
+def test_fused_attn_block_ragged_rows(card, shape):
+    b, n, dim, heads = shape
+    _fused_two_runs(fused_block_inputs(b, n, dim, torch.device("cuda"), seed=3), heads)
+
+
+@pytest.mark.parametrize("dim, heads", FUSED_DIMS)
+def test_fused_attn_block_widths(card, dim, heads):
+    _fused_two_runs(fused_block_inputs(2, 65, dim, torch.device("cuda"), seed=4), heads)
+
+
+def test_fused_attn_block_never_reads_past_the_operand(card):
+    """Rows past B*N of x and past the weights, read by the ragged last
+    blocks, reach no output: NaN bytes just past them change nothing."""
+    args = fused_block_inputs(1, 65, 1408, torch.device("cuda"), seed=5)
+    tailed = [_nan_tailed(a) if a.dtype == torch.bfloat16 else a for a in args]
+    got = fused_attn_block_forward(*tailed, 16)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_attn_block_forward(*args, 16)))
+
+
 @pytest.mark.parametrize("name, count", [("packed_attention", 3), ("mha_attention", 3),
-                                         ("packed_attention_bwd", 6), ("mha_attention_bwd", 6)])
+                                         ("packed_attention_bwd", 6), ("mha_attention_bwd", 6),
+                                         ("fused_attn_block", 7)])
 def test_forward_kernels_do_not_spill(card, name, count):
     """ptxas -v of the library: every instantiation with 0 bytes of spill
     stores; the forwards at hd 32, 64, 88, the backward pairs' dq and dkv
-    kernels at each of them."""
+    kernels at each of them, and kernel 6's two GEMMs at one and two
+    consumer warpgroups beside kernel 1's core at hd 32, 64, 88."""
     _build.load(name)
     spills = re.findall(r"(\d+) bytes spill stores", _build.build_log(name))
     assert len(spills) == count and all(int(x) == 0 for x in spills)

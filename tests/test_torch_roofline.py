@@ -9,6 +9,8 @@ from dinox_torch.utils.roofline import (
     VALIDATE_SHAPE,
     attention_fwd_work,
     bound_ms,
+    fused_attn_parts_work,
+    fused_attn_work,
     tpu_kernel_bounds,
 )
 
@@ -39,3 +41,28 @@ def test_head_major_forward_at_the_validate_shape():
     assert flops / 1e9 == pytest.approx(17.18, abs=0.01)
     ms, by = bound_ms(moved, flops, card_peaks("NVIDIA H100 80GB HBM3"))
     assert by == "operations" and ms == pytest.approx(0.01737, abs=1e-5)
+
+
+def test_kernel_6_parts_bound_more_than_the_fused_call():
+    """The three launches of the port's kernel 6 at the training shape: qkv
+    154.8 MB (44.3 GFLOP), attention 153.9 MB, proj 115.8 MB, each bound by
+    bytes; qkv and attn written and read back, so their bounds sum to 0.127
+    ms against the fused call's 0.0801."""
+    peaks = card_peaks("NVIDIA H100 80GB HBM3")
+    step = (192, 261, 384, 6)
+    parts = fused_attn_parts_work(*step)
+    assert list(parts) == ["qkv", "attention", "proj"]
+    assert parts["qkv"][0] / 1e6 == pytest.approx(154.8, abs=0.05)
+    assert parts["qkv"][1] / 1e9 == pytest.approx(44.34, abs=0.01)
+    assert parts["attention"] == attention_fwd_work(*step)
+    assert parts["proj"][0] / 1e6 == pytest.approx(115.8, abs=0.05)
+    bounds = {k: bound_ms(*v, peaks) for k, v in parts.items()}
+    assert all(by == "bytes" for _, by in bounds.values())
+    assert bounds["qkv"][0] == pytest.approx(0.0462, abs=1e-4)
+    assert bounds["proj"][0] == pytest.approx(0.0346, abs=1e-4)
+    total = sum(ms for ms, _ in bounds.values())
+    fused = bound_ms(*fused_attn_work(*step), peaks)
+    assert total == pytest.approx(0.127, abs=5e-4) and fused[0] == pytest.approx(0.0801, abs=1e-4)
+    assert total > fused[0]
+    # the flops of the parts are the fused call's
+    assert sum(f for _, f in parts.values()) == pytest.approx(fused_attn_work(*step)[1])
