@@ -35,9 +35,11 @@ Run from the repository root:  python3 chip_smoke.py
    shapes and at the ragged edges of its row blocks and widths (B*N 1, 63,
    64, 65; dim 96 and 1408): y, qkv and attn within 0.05, twice with equal
    bits, attn bit-equal to kernel 1 on the kernel's own qkv; the fused MLP
-   forward (kernel 7) at three within 0.02, and
-   the fused MLP backward's three launches (kernel 8) at the same three
-   within 2e-2 of each output's largest value, with equal bits on two runs.
+   forward's two launches (kernel 7: fc1 and fc2 on gemm_sm90.cuh) within
+   0.02 and the fused MLP backward's six (kernel 8: norm, hidden, dln, dx,
+   weights, reduce) within 2e-2 of each output's largest value, at three
+   shapes and at the ragged edges (rows 1, 63, 64, 65, 127, 129 and 8352;
+   widths 192 and 200), each twice with equal bits.
 10. Serves the same hub dir with EmbedService(fused_attn=True) and the same
    requests: CLS cosine >= 0.999 against the unfused service, kernel 6
    launches == depth x forwards, packed attention forward launches == 0.
@@ -45,7 +47,8 @@ Run from the repository root:  python3 chip_smoke.py
    fused_mlp through the kernels against the unfused exact-GELU model, from
    one state and the same views (loss within 1e-2 relative, gradient cosine
    >= 0.99), then trains that fused configuration at bs96 (3 warm-up, 10
-   timed and one profiled step) with exact launch counts per step.
+   timed and one profiled step) with exact launch counts per step (each
+   launch of kernels 7 and 8 counted on its own).
 12. (Run right after 6.) Holds the head-major pair against its plain
    versions at six shapes (the JAX check's unpacked shape, the bring-up
    shape (8, 8, 1024, 64), the training shape, hd 32, hd 88 and N=1500):
@@ -66,7 +69,8 @@ Run from the repository root:  python3 chip_smoke.py
    kernel 6 also each of its three launches' device time (torch.profiler)
    beside its own bound, the call's back-to-back time, the GEMM launches'
    registers, shared memory, CTAs per SM and grid split, and the achieved
-   TFLOP/s and TB/s. For
+   TFLOP/s and TB/s; for kernels 7 and 8 the same for each of their two and
+   six launches. For
    kernels 1, 4 and both backward pairs (each of their dq and dkv kernels)
    it also prints what sets the time: registers, shared memory per CTA and
    resident CTAs per SM (the occupancy API), the time of back-to-back
@@ -113,7 +117,9 @@ from dinox_torch.utils.roofline import (
     bound_ms,
     fused_attn_parts_work,
     fused_attn_work,
+    fused_mlp_bwd_parts_work,
     fused_mlp_bwd_work,
+    fused_mlp_fwd_parts_work,
     fused_mlp_fwd_work,
 )
 from dinox_torch.zoo.encode import _preprocess
@@ -158,6 +164,11 @@ FUSED_ATTN_PARTS = {"qkv": "fused_attn_block_qkv", "attention": "attention_fwd_s
 # ViT-G width on 2 views.
 MLP_TOL = 0.02
 MLP_SHAPES = [(8 * 261, 384), (192 * 261, 384), (2 * 261, 1408)]
+# Their ragged edges, (rows, C): the 64- and 128-row blocks at ViT-S width,
+# the serving rows, ViT-T's 192 and 200 (a K box wholly past K in the last
+# stage of fc1, hidden and fc2).
+MLP_EDGES = [(1, 384), (63, 384), (64, 384), (65, 384), (127, 384), (129, 384), (32 * 261, 384),
+             (65, 192), (65, 200)]
 FUSED_WARMUP, FUSED_STEPS = 3, 10
 # The head-major pair (kernels 4 and 5), (b, heads, n, hd): the JAX check's
 # unpacked shape, the bring-up gate's, the ViT-S training shape, the MAE
@@ -181,10 +192,8 @@ KERNEL_KINDS = [
     ("attention backward dq kernel", ("attention_bwd_sm90_dq",)),
     ("attention backward dkv kernel", ("attention_bwd_sm90_dkv",)),
     ("fused attention half-block kernel (LN + QKV and proj launches)", ("fused_attn_block",)),
-    ("fused MLP forward kernel", ("fused_mlp_fwd",)),
-    ("fused MLP backward rows kernel", ("fused_mlp_bwd_rows",)),
-    ("fused MLP backward weights kernel", ("fused_mlp_bwd_weights",)),
-    ("fused MLP backward reduce kernel", ("fused_mlp_bwd_reduce",)),
+    *((f"fused MLP forward kernel, {p} launch", (f"fused_mlp_fwd_{p}",)) for p in fm.FWD_PARTS),
+    *((f"fused MLP backward kernel, {p} launch", (f"fused_mlp_bwd_{p}",)) for p in fm.BWD_PARTS),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("optimizer/EMA (multi-tensor)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),
@@ -210,15 +219,14 @@ COUNTERS = {
     "packed_attention_bwd_dq": fa.packed_attention_bwd_dq,
     "packed_attention_bwd_dkv": fa.packed_attention_bwd_dkv,
     "fused_attn_block": fab.fused_attn_block,
-    "fused_mlp_fwd": fm.fused_mlp_forward,
-    "fused_mlp_bwd_rows": fm.fused_mlp_bwd_rows,
-    "fused_mlp_bwd_weights": fm.fused_mlp_bwd_weights,
-    "fused_mlp_bwd_reduce": fm.fused_mlp_bwd_reduce,
+    **{f"fused_mlp_fwd_{p}": fn for p, fn in fm.FWD_LAUNCHES.items()},
+    **{f"fused_mlp_bwd_{p}": fn for p, fn in fm.BWD_LAUNCHES.items()},
     "mha_attention": fa.flash_attention,
     "mha_attention_bwd_dq": fa.mha_attention_bwd_dq,
     "mha_attention_bwd_dkv": fa.mha_attention_bwd_dkv,
 }
-MLP_BWD_PARTS = ("fused_mlp_bwd_rows", "fused_mlp_bwd_weights", "fused_mlp_bwd_reduce")
+MLP_FWD_PARTS = tuple(f"fused_mlp_fwd_{p}" for p in fm.FWD_PARTS)
+MLP_BWD_PARTS = tuple(f"fused_mlp_bwd_{p}" for p in fm.BWD_PARTS)
 
 
 def launch_counts() -> dict[str, int]:
@@ -670,13 +678,13 @@ def train_fused(card: str) -> dict[str, int]:
     steps = FUSED_WARMUP + FUSED_STEPS + 1
     d = cfg.depth
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(fused_attn_block=steps * 2 * d, fused_mlp_fwd=steps * 2 * d,
-                packed_attention_bwd_dq=steps * d, packed_attention_bwd_dkv=steps * d,
+    want.update(fused_attn_block=steps * 2 * d, packed_attention_bwd_dq=steps * d,
+                packed_attention_bwd_dkv=steps * d, **{part: steps * 2 * d for part in MLP_FWD_PARTS},
                 **{part: steps * d for part in MLP_BWD_PARTS})
     print(f"trained {steps} steps of ViT-S scale-aware bs{TRAIN_BATCH}, exact GELU, fused_attn + "
           f"fused_mlp: losses {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, all finite; "
-          f"launches {counts} (want {want}: kernels 6 and 7 2 x depth, each of kernel 8's three "
-          f"and dq/dkv depth, packed forward 0, per step)", flush=True)
+          f"launches {counts} (want {want}: kernel 6 and each of kernel 7's two launches 2 x "
+          f"depth, each of kernel 8's six and dq/dkv depth, packed forward 0, per step)", flush=True)
     if counts != want:
         fail("the fused training step did not run every half-block through the kernels exactly once")
     report_training(res, cfg, card, FUSED_STEPS, FUSED_KERNEL_KINDS)
@@ -786,21 +794,22 @@ def check_fused_attn() -> float:
     return worst
 
 
-def fused_attn_parts_ms(args: tuple, heads: int, calls: int = 20) -> dict[str, float]:
-    """Device ms of each of kernel 6's three launches: the mean over the
-    launches that torch.profiler recorded in *calls* calls."""
-    fab.fused_attn_block_forward(*args, heads)
+def launch_parts_ms(fn, keys: dict[str, str], label: str, calls: int = 20) -> dict[str, float]:
+    """Device ms of each launch of a multi-launch kernel: for every part of
+    *keys* (part: substring of its kernel's name), the mean over the
+    launches that torch.profiler recorded in *calls* calls of *fn*."""
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            fab.fused_attn_block_forward(*args, heads)
+            fn()
         torch.cuda.synchronize()
     out = {}
-    for part, key in FUSED_ATTN_PARTS.items():
+    for part, key in keys.items():
         events = [e for e in prof.key_averages() if key in e.key and e.self_device_time_total > 0]
         count = sum(e.count for e in events)  # the trace may miss a launch at its start
         if not calls // 2 <= count <= calls:
-            fail(f"the profile of {calls} kernel 6 calls holds {count} launches of {key}")
+            fail(f"the profile of {calls} {label} calls holds {count} launches of {key}")
         out[part] = sum(e.self_device_time_total for e in events) / count / 1e3
     return out
 
@@ -811,7 +820,8 @@ def what_sets_kernel_6s_time(b: int, n: int, dim: int, heads: int, args: tuple, 
     bound with its achieved rates, and the GEMM launches' occupancy and
     grid split. Returns {"device_ms", "parts": {part: {"ms", "bound_ms"}}}."""
     device_ms = stream_ms(lambda: fab.fused_attn_block_forward(*args, heads))
-    parts_ms = fused_attn_parts_ms(args, heads)
+    parts_ms = launch_parts_ms(lambda: fab.fused_attn_block_forward(*args, heads), FUSED_ATTN_PARTS,
+                               "kernel 6")
     work = fused_attn_parts_work(b, n, dim, heads)
     parts = {}
     for part, ms in parts_ms.items():
@@ -841,19 +851,20 @@ def what_sets_kernel_6s_time(b: int, n: int, dim: int, heads: int, args: tuple, 
 
 
 def check_fused_mlp() -> tuple[float, float]:
-    """Kernel 7 against the plain forward and kernel 8's three launches
-    against the plain backward at MLP_SHAPES; the backward twice, for equal
-    bits. Returns the worst forward error and the worst backward error."""
+    """Kernel 7's two launches against the plain forward and kernel 8's six
+    against the plain backward at MLP_SHAPES and MLP_EDGES, each twice for
+    equal bits. Returns the worst forward error and the worst backward
+    error."""
     worst_f = worst_b = 0.0
     names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
-    for i, (rows, c) in enumerate(MLP_SHAPES):
+    for i, (rows, c) in enumerate(MLP_SHAPES + MLP_EDGES):
         args, dy = fused_mlp_inputs(rows, c, torch.device("cuda"), SEED + 20 + i)
-        got = fm.fused_mlp_forward(*args)
+        fwd = [fm.fused_mlp_forward(*args) for _ in range(2)]
         torch.cuda.synchronize()
-        err = (got.float() - fm.fused_mlp_forward_reference(*args).float()).abs().max().item()
+        err = (fwd[0].float() - fm.fused_mlp_forward_reference(*args).float()).abs().max().item()
         runs = [fm.fused_mlp_backward(*args[:6], dy) for _ in range(2)]
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        same = torch.equal(*fwd) and all(torch.equal(a, b) for a, b in zip(*runs))
         want = fm.fused_mlp_backward_reference(*args[:6], dy)
         abs_errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(runs[0], want)]
         rels = [e / w.float().abs().max().item() for e, w in zip(abs_errs, want)]
@@ -864,10 +875,34 @@ def check_fused_mlp() -> tuple[float, float]:
               f"{max(abs_errs):.3e}; two runs bit-equal: {same}", flush=True)
         if not np.isfinite(err) or err >= MLP_TOL:
             fail(f"fused_mlp forward disagrees with its plain version at {(rows, c)}")
-        if not np.isfinite(rels).all() or max(rels) >= BWD_REL or not same:
+        if not np.isfinite(rels).all() or max(rels) >= BWD_REL:
             fail(f"fused_mlp backward disagrees with its plain version at {(rows, c)}")
+        if not same:
+            fail(f"fused_mlp's bits are not repeatable at {(rows, c)}")
         worst_f, worst_b = max(worst_f, err), max(worst_b, *abs_errs)
     return worst_f, worst_b
+
+
+def what_sets_mlp_time(kind: str, fn, work: dict, shape: tuple[int, int, int],
+                       peaks: tuple[float, float]) -> dict[str, dict]:
+    """Each launch of kernel 7 (*kind* "fwd") or 8 ("bwd") in calls of *fn*:
+    its device time (torch.profiler) beside its own bound in *work* (part:
+    (bytes, flops)), achieved TFLOP/s and TB/s, registers, shared memory and
+    CTAs per SM. Returns {part: {"ms", "bound_ms", "bound_by"}}."""
+    parts = fm.FWD_PARTS if kind == "fwd" else fm.BWD_PARTS
+    parts_ms = launch_parts_ms(fn, {p: f"fused_mlp_{kind}_{p}" for p in parts}, f"kernel {kind}")
+    out = {}
+    for part, ms in parts_ms.items():
+        moved, flops = work[part]
+        bound = bound_ms(moved, flops, peaks)
+        occ = fm.fused_mlp_occupancy(part, shape[1])
+        print(f"fused_mlp {kind} launch {part} at {shape}: {ms:.4f} ms device, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}: {moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+              f"{100 * bound[0] / ms:.1f}% of it; {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{moved / ms / 1e9:.3f} TB/s; {occ['registers']} registers, {occ['smem_bytes']} B "
+              f"of shared memory per CTA, {occ['ctas_per_sm']} CTAs per SM", flush=True)
+        out[part] = {"ms": ms, "bound_ms": bound[0], "bound_by": bound[1]}
+    return out
 
 
 def time_fused(peaks: tuple[float, float]) -> dict[str, dict]:
@@ -917,6 +952,7 @@ def time_fused(peaks: tuple[float, float]) -> dict[str, dict]:
 
     rows, c = MLP_SHAPES[1]
     hidden = 4 * c
+    shape = (rows, c, hidden)
     args, dy = fused_mlp_inputs(rows, c, dev, SEED + 31)
     norm, mlp = LayerNorm(c, torch.bfloat16).to(dev), Mlp(c, hidden, gelu_approx=False).to(dev)
     with torch.no_grad():
@@ -924,46 +960,42 @@ def time_fused(peaks: tuple[float, float]) -> dict[str, dict]:
                          mlp.fc2.bias), args[1:]):
             p.copy_(v.float())
         kern = median_ms(lambda: fm.fused_mlp_forward(*args))
+        device_ms = stream_ms(lambda: fm.fused_mlp_forward(*args))
         plain = median_ms(lambda: fm.fused_mlp_forward_reference(*args), iters=10)
         unfused = median_ms(lambda: args[0] + mlp(norm(args[0])))
-    moved, flops = fused_mlp_fwd_work(rows, c, hidden)
+    moved, flops = fused_mlp_fwd_work(*shape)
     bound = bound_ms(moved, flops, peaks)
-    print(f"fused_mlp forward at ({rows}, {c}, {hidden}): {kern:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}: {flops / 1e9:.2f} GFLOP), plain {plain:.4f} ms, unfused composition "
-          f"{unfused:.4f} ms", flush=True)
-    out["mlp_fwd"] = {"ms": kern, "plain_ms": plain, "unfused_ms": unfused, "bound": bound}
+    parts = what_sets_mlp_time("fwd", lambda: fm.fused_mlp_forward(*args),
+                               fused_mlp_fwd_parts_work(*shape), shape, peaks)
+    print(f"fused_mlp forward at {shape}: {kern:.4f} ms per call, {device_ms:.4f} ms back to back "
+          f"({sum(p['ms'] for p in parts.values()):.4f} ms in its two launches), bound "
+          f"{bound[0]:.4f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP) fused, "
+          f"{sum(p['bound_ms'] for p in parts.values()):.4f} ms by launch: "
+          f"{flops / device_ms / 1e9:.1f} TFLOP/s back to back; plain {plain:.4f} ms, unfused "
+          f"composition {unfused:.4f} ms", flush=True)
+    out["mlp_fwd"] = {"ms": kern, "device_ms": device_ms, "plain_ms": plain, "unfused_ms": unfused,
+                      "bound": bound, "parts": parts}
 
     total = median_ms(lambda: fm.fused_mlp_backward(*args[:6], dy))
-    # Each of the three launches alone, on the workspace of one backward.
-    blocks = -(-rows // fm.row_block(c))
-    chunks = min(fm.WEIGHT_CHUNKS, blocks)
-    ws = dict(dx=torch.empty_like(args[0]), lnb=torch.empty_like(args[0]),
-              ab=torch.empty((rows, hidden), dtype=torch.bfloat16, device=dev),
-              dhb=torch.empty((rows, hidden), dtype=torch.bfloat16, device=dev),
-              part=torch.empty((blocks, 3 * c + hidden), device=dev),
-              wpart=torch.empty((chunks, 2 * c * hidden), device=dev),
-              out=torch.empty(2 * c * hidden + 3 * c + hidden, device=dev))
-    parts = {
-        "fused_mlp_bwd_rows": median_ms(lambda: fm.fused_mlp_bwd_rows(
-            *args[:6], dy, ws["dx"], ws["lnb"], ws["ab"], ws["dhb"], ws["part"])),
-        "fused_mlp_bwd_weights": median_ms(lambda: fm.fused_mlp_bwd_weights(
-            dy, ws["ab"], ws["dhb"], ws["lnb"], ws["wpart"], chunks)),
-        "fused_mlp_bwd_reduce": median_ms(lambda: fm.fused_mlp_bwd_reduce(
-            ws["wpart"], ws["part"], ws["out"], c, hidden, chunks)),
-    }
+    device_ms = stream_ms(lambda: fm.fused_mlp_backward(*args[:6], dy), iters=20)
     plain = median_ms(lambda: fm.fused_mlp_backward_reference(*args[:6], dy), iters=5, warmup=2)
     xr = args[0].detach().requires_grad_(True)
     params = [xr] + list(norm.parameters()) + list(mlp.parameters())
     y = xr + mlp(norm(xr))
     unfused = median_ms(lambda: torch.autograd.grad(y, params, dy, retain_graph=True))
-    moved, flops = fused_mlp_bwd_work(rows, c, hidden)
+    moved, flops = fused_mlp_bwd_work(*shape)
     bound = bound_ms(moved, flops, peaks)
-    print(f"fused_mlp backward at ({rows}, {c}, {hidden}): {total:.4f} ms for three launches ("
-          + ", ".join(f"{k.rsplit('_', 1)[1]} {v:.4f}" for k, v in parts.items())
-          + f"), bound {bound[0]:.4f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP), plain "
-          f"{plain:.4f} ms, unfused composition (autograd) {unfused:.4f} ms", flush=True)
-    out["mlp_bwd"] = {"ms": total, "plain_ms": plain, "unfused_ms": unfused, "bound": bound,
-                      "parts": parts}
+    chunks, per_chunk = fm.weight_chunks(rows, c, hidden)
+    parts = what_sets_mlp_time("bwd", lambda: fm.fused_mlp_backward(*args[:6], dy),
+                               fused_mlp_bwd_parts_work(*shape, chunks), shape, peaks)
+    print(f"fused_mlp backward at {shape}: {total:.4f} ms per call, {device_ms:.4f} ms back to "
+          f"back ({sum(p['ms'] for p in parts.values()):.4f} ms in its six launches; weights split "
+          f"over {chunks} chunks of {per_chunk} rows), bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{flops / 1e9:.2f} GFLOP) fused, {sum(p['bound_ms'] for p in parts.values()):.4f} ms by "
+          f"launch: {flops / device_ms / 1e9:.1f} TFLOP/s back to back; plain {plain:.4f} ms, "
+          f"unfused composition (autograd) {unfused:.4f} ms", flush=True)
+    out["mlp_bwd"] = {"ms": total, "device_ms": device_ms, "plain_ms": plain, "unfused_ms": unfused,
+                      "bound": bound, "parts": parts, "chunks": chunks}
     return out
 
 
@@ -1196,7 +1228,7 @@ def main() -> int:
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
          fused["attn_training"], fused_counts["fused_attn_block"]),
         ("fused_mlp_fwd", "fused_mlp.cu", "fused_mlp.py:65", mlp_err[0], fused["mlp_fwd"],
-         fused_counts["fused_mlp_fwd"]),
+         min(fused_counts[p] for p in MLP_FWD_PARTS)),
         ("fused_mlp_bwd", "fused_mlp_bwd.cu", "fused_mlp.py:76", mlp_err[1], fused["mlp_bwd"],
          min(fused_counts[p] for p in MLP_BWD_PARTS)),
     )
@@ -1223,9 +1255,10 @@ def main() -> int:
                                 "bound_ms": serving["bound"][0], "unfused_ms": serving["unfused_ms"],
                                 "device_ms": serving["device_ms"], "parts": serving["parts"]}
             entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
-        if name == "fused_mlp_bwd":  # three launches: ms is their sum, parts each one's
-            entry["parts"] = {p: {"launches": fused_counts[p], "ms": t["parts"][p]}
-                              for p in MLP_BWD_PARTS}
+        if name.startswith("fused_mlp"):  # two or six launches: parts holds each one's device time
+            entry["device_ms"] = t["device_ms"]
+            entry["parts"] = {p: {"launches": fused_counts[f"{name}_{p}"], **v}
+                              for p, v in t["parts"].items()}
         kernels.append(entry)
     # Kernel 4 at the bring-up shape, the one its path runs at; the training
     # shape beside it.

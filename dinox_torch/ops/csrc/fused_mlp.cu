@@ -3,236 +3,130 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` (dinox_tpu/ops/fused_mlp.py, reached
 // through `_fwd` / `fused_mlp_block`). Same function and rounding points:
-// LayerNorm in f32 with the two-pass variance, its output rounded to bf16;
-// h = ln W1^T with f32 accumulation plus the f32 b1; exact GELU in f32 (erff;
-// the TPU kernel's polynomial erf is within 1.5e-7 of it); a rounded to bf16;
-// y = bf16(x32 + (a W2^T + b2)). Weights are bf16 in the (out, in) layout:
-// W1 (hidden, C), W2 (C, hidden).
+// LayerNorm in f32 with the two-pass variance mean((x - mu)^2), its output
+// rounded to bf16; h = ln W1^T with f32 accumulation plus the f32 b1; exact
+// GELU in f32 with the TPU kernel's polynomial erf (within 1.5e-7 of erf);
+// a rounded to bf16; y = bf16(x32 + (a W2^T + b2)). Weights are bf16 in the
+// (out, in) layout: W1 (hidden, C), W2 (C, hidden).
 //
 // Bound on an H100 SXM: at the ViT-S training shape (50,112 rows, 384 ->
 // 1536 -> 384) the call does 118.2 GFLOP against 77 MB of x, y and weights,
 // so the tensor cores bound it (0.120 ms at 989 TFLOP/s).
 //
-// Design: one CTA of 8 warps per block of R rows (R = 32 up to C = 768, 16
-// above, so the f32 fc2 accumulator fits in registers). The CTA normalises its
-// rows into a bf16 tile in shared memory, then walks the hidden width in
-// chunks of 128: each warp forms 16 hidden columns of h for all R rows
-// (wmma, W1 fragments read straight from global memory, where L1/L2 hold the
-// weights every CTA shares), the CTA adds b1 and applies GELU through shared
-// memory, and each warp adds a W2^T into its C/8 columns of the accumulator.
-// Neither h nor a leaves the chip; device memory sees x in, y out and the
-// weights. The ragged last row block is masked, not padded. What the design
-// does not do yet (later work): wgmma, TMA-staged weight tiles, larger row
-// blocks to cut the weight traffic from L2 (each CTA reads all of W1 and W2).
+// Two launches in order on the caller's stream, both on the wgmma + TMA GEMM
+// core (gemm_sm90.cuh):
+//   1. fused_mlp_fwd_fc1: the row-block core gemm_rows with the two-pass
+//      LayerNorm prologue (once per row block and column group, the x block
+//      held whole in shared memory) and the BiasGelu epilogue:
+//      a = bf16(gelu(ln W1^T + b1)), (M, hidden), leaving by TMA stores;
+//   2. fused_mlp_fwd_fc2: the streaming core (A tiles of a ride in the ring
+//      beside the W2 tiles, so K = hidden is unbounded; three column tiles
+//      of y per pass, so each tile of a is read once at C = 384) with the
+//      ResidualOut epilogue: y = bf16(x + (a W2^T + b2)).
+// a goes to device memory and is read back (154 MB at the training shape), so
+// the two launches' own bounds sum to more than the fused bound: 0.0598 +
+// 0.0693 ms there (utils.roofline.fused_mlp_fwd_parts_work). A single launch
+// that keeps a on chip would hold the 64 x C f32 fc2 accumulator of a row
+// block across every hidden tile: 192 registers a thread at C = 384 for one
+// warpgroup, impossible at 1408 (PERF.md, open questions).
+// C a multiple of 8 and at most MAX_K (1408, the x block fc1 holds whole);
+// hidden a multiple of 8; any M. No atomics: the same inputs give the same
+// bits on every run.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <math.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 128;       // hidden chunk: 16 columns per warp
-constexpr int LDH = HC + 4;   // f32 pitch of the h staging tile
-constexpr int LDAC = HC + 8;  // bf16 pitch of the activation tile
-constexpr float LN_EPS = 1e-5f;
-constexpr float SQRT_HALF = 0.7071067811865476f;
+using dinox_gemm::BiasGelu;
+using dinox_gemm::Layout;
+using dinox_gemm::LayerNormTwoPass;
+using dinox_gemm::ResidualOut;
+using dinox_gemm::WForm;
 
-constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
-
-template <int C>
-struct Shape {
-  static constexpr int R = C <= 768 ? 32 : 16;  // rows per CTA
-  static constexpr int FR = R / 16;              // row fragments
-  static constexpr int FC = C / (WARPS * 16);    // accumulator column fragments per warp
-  static constexpr int LDL = C + 8;              // bf16 pitch of the LN tile
-  static constexpr int LDO = C + 4;              // f32 pitch of the output staging tile
-  static constexpr size_t LN_OFF = 0;
-  static constexpr size_t H_OFF = LN_OFF + round128(sizeof(__nv_bfloat16) * R * LDL);
-  static constexpr size_t A_OFF = H_OFF + round128(sizeof(float) * R * LDH);
-  static constexpr size_t O_OFF = A_OFF + round128(sizeof(__nv_bfloat16) * R * LDAC);
-  static constexpr size_t SMEM = O_OFF + round128(sizeof(float) * R * LDO);
-  static_assert(C % (WARPS * 16) == 0, "C must be a multiple of 128");
-};
-
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_fwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                     const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1,
-                     const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                     const float* __restrict__ b2, __nv_bfloat16* __restrict__ y, int m,
-                     int hidden) {
-  using S = Shape<C>;
-  constexpr int R = S::R;
-  constexpr int PER_LANE = C / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sLn = reinterpret_cast<__nv_bfloat16*>(smem + S::LN_OFF);
-  float* sH = reinterpret_cast<float*>(smem + S::H_OFF);
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem + S::A_OFF);
-  float* sO = reinterpret_cast<float*>(smem + S::O_OFF);
-
-  const int r0 = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-
-  // Two-pass f32 LayerNorm of the block's rows into the bf16 tile; rows past
-  // m are zero.
-  for (int r = warp; r < R; r += WARPS) {
-    __nv_bfloat16* dst = sLn + r * S::LDL;
-    if (r0 + r >= m) {
-      for (int k = lane; k < C; k += 32) dst[k] = __float2bfloat16(0.f);
-      continue;
-    }
-    const __nv_bfloat16* row = x + (long long)(r0 + r) * C;
-    float v[PER_LANE];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      v[i] = __bfloat162float(row[lane + 32 * i]);
-      s += v[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / C;
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) ss += (v[i] - mu) * (v[i] - mu);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float rstd = rsqrtf(ss / C + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int k = lane + 32 * i;
-      dst[k] = __float2bfloat16((v[i] - mu) * rstd * gamma[k] + beta[k]);
-    }
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[S::FR][S::FC];
-#pragma unroll
-  for (int i = 0; i < S::FR; ++i)
-#pragma unroll
-    for (int f = 0; f < S::FC; ++f) wmma::fill_fragment(acc[i][f], 0.f);
-  const int c_warp = warp * (C / WARPS);  // this warp's accumulator columns
-
-  for (int j0 = 0; j0 < hidden; j0 += HC) {
-    // h[:, j0 + 16*warp .. +16] = ln W1^T, f32 accumulation.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hf[S::FR];
-#pragma unroll
-    for (int i = 0; i < S::FR; ++i) wmma::fill_fragment(hf[i], 0.f);
-    const __nv_bfloat16* w1c = w1 + (long long)(j0 + warp * 16) * C;
-#pragma unroll 4
-    for (int k = 0; k < C; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, w1c + k, C);
-#pragma unroll
-      for (int i = 0; i < S::FR; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sLn + i * 16 * S::LDL + k, S::LDL);
-        wmma::mma_sync(hf[i], fa, fb, hf[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < S::FR; ++i)
-      wmma::store_matrix_sync(sH + i * 16 * LDH + warp * 16, hf[i], LDH, wmma::mem_row_major);
-    __syncthreads();  // h is complete; every warp is done reading the previous activations
-
-    // a = bf16(GELU(h + b1)).
-    for (int i = tid; i < R * HC; i += THREADS) {
-      const int r = i / HC, j = i % HC;
-      const float hv = sH[r * LDH + j] + b1[j0 + j];
-      sA[r * LDAC + j] = __float2bfloat16(0.5f * hv * (1.f + erff(hv * SQRT_HALF)));
-    }
-    __syncthreads();
-
-    // acc[:, this warp's columns] += a W2^T[chunk, :].
-#pragma unroll
-    for (int kk = 0; kk < HC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[S::FR];
-#pragma unroll
-      for (int i = 0; i < S::FR; ++i)
-        wmma::load_matrix_sync(fa[i], sA + i * 16 * LDAC + kk * 16, LDAC);
-#pragma unroll
-      for (int f = 0; f < S::FC; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, w2 + (long long)(c_warp + f * 16) * hidden + j0 + kk * 16,
-                               hidden);
-#pragma unroll
-        for (int i = 0; i < S::FR; ++i) wmma::mma_sync(acc[i][f], fa[i], fb, acc[i][f]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < S::FR; ++i)
-#pragma unroll
-    for (int f = 0; f < S::FC; ++f)
-      wmma::store_matrix_sync(sO + i * 16 * S::LDO + c_warp + f * 16, acc[i][f], S::LDO,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  // y = bf16(x32 + (acc + b2)), 8 columns per thread and step.
-  for (int i = tid; i < R * (C / 8); i += THREADS) {
-    const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-    if (r0 + r >= m) continue;
-    const long long off = (long long)(r0 + r) * C + c;
-    uint4 xin = *reinterpret_cast<const uint4*>(x + off);
-    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xin);
-    uint4 v;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __float2bfloat16(__bfloat162float(xe[j]) + (sO[r * S::LDO + c + j] + b2[c + j]));
-    *reinterpret_cast<uint4*>(y + off) = v;
-  }
+template <int WGS>
+__global__ void __launch_bounds__(Layout<WGS>::THREADS, 1)
+fused_mlp_fwd_fc1(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
+                  const __grid_constant__ CUtensorMap map_a, const LayerNormTwoPass pro,
+                  const BiasGelu epi, int m, int k, int nout, int stages, int tiles_per_cta) {
+  dinox_gemm::gemm_rows<WGS>(&map_x, &map_w1, &map_a, pro, epi, m, k, nout, stages, tiles_per_cta);
 }
 
-template <int C>
-cudaError_t launch(const void* x, const void* gamma, const void* beta, const void* w1,
-                   const void* b1, const void* w2, const void* b2, void* y, int m, int hidden,
-                   cudaStream_t stream) {
-  using S = Shape<C>;
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_fwd_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(S::SMEM));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + S::R - 1) / S::R);
-  fused_mlp_fwd_kernel<C><<<grid, THREADS, S::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(y), m, hidden);
-  return cudaGetLastError();
+// fc2 covers 3 column tiles of y (C = 384) per pass over a's tiles: 3 x 64
+// accumulator floats a consumer thread.
+constexpr int FC2_TILES = 3;
+using Fc2 = dinox_gemm::StreamLayout<2, 1, ResidualOut::C_TILES, ResidualOut::SCRATCH, FC2_TILES>;
+
+__global__ void __launch_bounds__(Fc2::THREADS, 1)
+fused_mlp_fwd_fc2(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w2,
+                  const ResidualOut epi, int m, int k, int nout, int stages, int tiles_per_cta) {
+  dinox_gemm::gemm_stream<2, WForm::KMajor, WForm::KMajor, FC2_TILES>(
+      &map_a, &map_w2, &map_a, &map_w2, nullptr, nullptr, epi, m, k, nout, stages, tiles_per_cta);
+}
+
+// Two consumer warpgroups (128-row blocks) where fc1's x block fits beside
+// two W stages, else one.
+bool wide(int c) { return Layout<2>::stages(c) >= 2; }
+
+bool takes(int c, int hidden) {
+  return c > 0 && c % 8 == 0 && c <= dinox_gemm::MAX_K && hidden > 0 && hidden % 8 == 0;
+}
+
+template <int WGS>
+cudaError_t fc1(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+                void* a, int m, int c, int hidden, cudaStream_t s) {
+  return dinox_gemm::launch_gemm<WGS>(
+      fused_mlp_fwd_fc1<WGS>, x, w1, m, c, hidden,
+      LayerNormTwoPass{static_cast<const float*>(gamma), static_cast<const float*>(beta)},
+      BiasGelu{static_cast<const float*>(b1), static_cast<__nv_bfloat16*>(a)}, s);
 }
 
 }  // namespace
 
-// x, y: (m, c) bf16; gamma, beta, b2: (c,) f32; w1: (hidden, c) bf16; b1:
-// (hidden,) f32; w2: (c, hidden) bf16. All contiguous and 32-byte aligned;
-// c one of 384, 768, 1024, 1408; hidden a multiple of 128. Returns the
-// cudaError_t of the launch.
-extern "C" int dinox_fused_mlp_fwd_bf16(const void* x, const void* gamma, const void* beta,
-                                        const void* w1, const void* b1, const void* w2,
-                                        const void* b2, void* y, int m, int c, int hidden,
-                                        void* stream) {
+// Launch 1. x: (m, c) bf16; gamma, beta: (c,) f32; w1: (hidden, c) bf16; b1:
+// (hidden,) f32; a: (m, hidden) bf16 out. All contiguous and 16-byte aligned.
+// Returns the launch's cudaError_t.
+extern "C" int dinox_fused_mlp_fwd_fc1_bf16(const void* x, const void* gamma, const void* beta,
+                                            const void* w1, const void* b1, void* a, int m, int c,
+                                            int hidden, void* stream) {
+  if (!takes(c, hidden)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hidden % 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (c) {
-    case 384:
-      return static_cast<int>(launch<384>(x, gamma, beta, w1, b1, w2, b2, y, m, hidden, s));
-    case 768:
-      return static_cast<int>(launch<768>(x, gamma, beta, w1, b1, w2, b2, y, m, hidden, s));
-    case 1024:
-      return static_cast<int>(launch<1024>(x, gamma, beta, w1, b1, w2, b2, y, m, hidden, s));
-    case 1408:
-      return static_cast<int>(launch<1408>(x, gamma, beta, w1, b1, w2, b2, y, m, hidden, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(wide(c) ? fc1<2>(x, gamma, beta, w1, b1, a, m, c, hidden, s)
+                                  : fc1<1>(x, gamma, beta, w1, b1, a, m, c, hidden, s));
+}
+
+// Launch 2. a: (m, hidden) bf16; x: (m, c) bf16, the residual; w2: (c,
+// hidden) bf16; b2: (c,) f32; y: (m, c) bf16 out. Returns the launch's
+// cudaError_t.
+extern "C" int dinox_fused_mlp_fwd_fc2_bf16(const void* a, const void* x, const void* w2,
+                                            const void* b2, void* y, int m, int c, int hidden,
+                                            void* stream) {
+  if (!takes(c, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  dinox_gemm::Grid g;
+  cudaError_t err = dinox_gemm::stream_grid<Fc2>(fused_mlp_fwd_fc2, m, c, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_a, map_w;
+  if ((err = dinox_gemm::encode_rows_map(&map_a, a, m, hidden, Fc2::BM)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_w, w2, c, hidden, dinox_gemm::BN)) != cudaSuccess)
+    return static_cast<int>(err);
+  fused_mlp_fwd_fc2<<<dim3(g.rows, g.groups), Fc2::THREADS, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_w,
+      ResidualOut{static_cast<const float*>(b2), static_cast<const __nv_bfloat16*>(x),
+                  static_cast<__nv_bfloat16*>(y)},
+      m, hidden, c, g.stages, g.per_cta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, dynamic shared memory per CTA (bytes) and resident
+// CTAs per SM of launch `part` (0: fc1, 1: fc2) at width c. Returns a
+// cudaError_t.
+extern "C" int dinox_fused_mlp_fwd_occupancy(int part, int c, int* regs, int* smem, int* ctas) {
+  if (!takes(c, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (part == 0)
+    err = wide(c) ? dinox_gemm::gemm_occupancy<2>(fused_mlp_fwd_fc1<2>, c, regs, smem, ctas)
+                  : dinox_gemm::gemm_occupancy<1>(fused_mlp_fwd_fc1<1>, c, regs, smem, ctas);
+  else
+    err = dinox_gemm::occupancy(fused_mlp_fwd_fc2, Fc2::THREADS, Fc2::dynamic(Fc2::stages()), regs,
+                                smem, ctas);
+  return static_cast<int>(err);
 }

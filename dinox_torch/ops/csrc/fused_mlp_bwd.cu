@@ -1,5 +1,5 @@
-// Fused transformer-MLP half-block backward for Hopper (sm_90a): three
-// kernels, rows, weights and reduce.
+// Fused transformer-MLP half-block backward for Hopper (sm_90a): six
+// launches, norm, hidden, dln, dx, weights and reduce.
 //
 // Replaces the TPU kernel `_bwd_kernel` (dinox_tpu/ops/fused_mlp.py, reached
 // through `_bwd` / the VJP of `fused_mlp_block`). Same function and rounding
@@ -16,452 +16,498 @@
 //
 // The trap: the TPU kernel adds the parameter gradients into constant-index
 // output blocks across its grid, which is safe only because a TPU grid runs
-// in order. Here CTAs run at once, and a partial of dW1 + dW2 per CTA would be
-// 4.7 MB. So the work is split into three launches, with no float atomics and
-// a fixed order of every sum (the same bits run to run):
-//   rows:    one CTA of 8 warps per block of R rows (R = 32 up to C = 768,
-//            16 above) recomputes LN, fc1 and GELU chunk by chunk (128 hidden
-//            columns), forms da, dh and dhb, keeps dln in registers across the
-//            chunks, writes dx, the bf16 lnb, ab and dhb (the values the TPU
-//            kernel feeds its matrix unit), and the block's partial sums of
-//            dgamma, dbeta, db2 and db1;
-//   weights: dW2 = dyb^T ab and dW1 = dhb^T lnb as tiled products (64 x 128
-//            output tiles, 4 warps) over `chunks` row ranges, one f32 partial
-//            per range;
-//   reduce:  adds the ranges' partials and the row blocks' partials in order.
+// in order. Here CTAs run at once, so the sums over rows become per-block
+// and per-chunk partials that a last launch adds in a fixed order: no float
+// atomics, the same bits run to run. The launches, in order on the caller's
+// stream (the matrix products on the wgmma + TMA cores of gemm_sm90.cuh):
+//   norm:    one warp per row: the two-pass LayerNorm, lnb = bf16(ln);
+//   hidden:  the streaming core with two products over the same K = C and
+//            hidden tile, h = lnb W1^T (W1 K-major) and da = dyb W2 (W2 read
+//            MN-major, as stored), into two accumulators in each of two
+//            consumer warpgroups (128-row blocks, so every W tile read from
+//            L2 serves 128 rows); the producer is a whole warpgroup that
+//            hands its registers to them (setmaxnreg). Its GeluPair epilogue
+//            writes ab and dhb by TMA stores and each 64-row block's column
+//            sums of dh (db1), rows past m masked to 0;
+//   dln:     the streaming core, dln = dhb W1 (W1 MN-major, K = hidden), f32,
+//            three column tiles per pass over dhb's tiles (C = 384 in one);
+//   dx:      one warp per row: the two-pass statistics recomputed from x, dx,
+//            and each 64-row block's column sums of dln xhat, dln and dy
+//            (dgamma, dbeta, db2), each warp's kept in registers over its
+//            rows and the eight warps' added in order;
+//   weights: the weight-gradient core, dW2 = dyb^T ab and dW1 = dhb^T lnb
+//            (both operands MN-major) in 128 x 256 and 256 x 128 tiles,
+//            split over row chunks chosen to fill the SMs, one f32 partial
+//            per chunk;
+//   reduce:  the chunks' partials added in chunk order, and the 64-row
+//            blocks' partials in eight interleaved runs added in a fixed order.
 //
 // Bound on an H100 SXM at the ViT-S training shape (50,112 rows, 384 ->
 // 1536 -> 384): 295.6 GFLOP (recomputed fc1, da, dW2, dW1, dln), so the
-// tensor cores bound it (0.299 ms at 989 TFLOP/s). Writing and reading lnb,
-// ab and dhb costs ~0.66 GB of device traffic (0.2 ms at 3.35 TB/s), under
-// that bound; the workspace is ~0.4 GB at that shape. What the design does not
-// do yet (later work): wgmma, TMA-staged weight tiles, larger row blocks.
+// tensor cores bound the function (0.299 ms at 989 TFLOP/s). Each launch's
+// own bound (utils.roofline.fused_mlp_bwd_parts_work) counts what it moves:
+// lnb, ab, dhb, dln and the partials are written and read back, so the
+// launches' bounds sum to more: 0.409 ms there (7 weight chunks). C a
+// multiple of 8 and at most 1408; hidden a multiple of 8; any m.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <math.h>
-#include <stdint.h>
-
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int HC = 128;       // hidden chunk: 16 columns per warp
-constexpr int LDH = HC + 4;   // f32 pitch of the h and da staging tiles
-constexpr int LDD = HC + 8;   // bf16 pitch of the dhb tile
+using dinox_gemm::BN;
+using dinox_gemm::F32Out;
+using dinox_gemm::GeluPair;
+using dinox_gemm::StreamLayout;
+using dinox_gemm::WForm;
+
+constexpr int BLOCK = 64;         // rows of a partial-sum block (the hidden launch's row blocks)
+constexpr int ROW_THREADS = 256;  // norm and dx: 8 warps, a row at a time each
+constexpr int ROW_WARPS = ROW_THREADS / 32;
+constexpr int MAX_C = 1408;
+constexpr int MAX_CHUNKS = 16;    // row chunks of the weights launch, at most
+constexpr int RED_RUNS = 8;       // interleaved runs of the block partials in the reduce
 constexpr float LN_EPS = 1e-5f;
-constexpr float SQRT_HALF = 0.7071067811865476f;
-constexpr float INV_SQRT_2PI = 0.3989422804014327f;
 
-constexpr size_t round128(size_t x) { return (x + 127) / 128 * 128; }
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-template <int C>
-struct Shape {
-  static constexpr int R = C <= 768 ? 32 : 16;  // rows per CTA
-  static constexpr int FR = R / 16;              // row fragments
-  static constexpr int FC = C / (WARPS * 16);    // dln column fragments per warp
-  static constexpr int LDL = C + 8;              // bf16 pitch of the lnb and dyb tiles
-  static constexpr int LDO = C + 4;              // f32 pitch of the dln staging tile
-  static constexpr size_t LN_OFF = 0;
-  static constexpr size_t DY_OFF = LN_OFF + round128(sizeof(__nv_bfloat16) * R * LDL);
-  static constexpr size_t H_OFF = DY_OFF + round128(sizeof(__nv_bfloat16) * R * LDL);
-  static constexpr size_t DA_OFF = H_OFF + round128(sizeof(float) * R * LDH);
-  static constexpr size_t DH_OFF = DA_OFF + round128(sizeof(float) * R * LDH);
-  static constexpr size_t STAT_OFF = DH_OFF + round128(sizeof(__nv_bfloat16) * R * LDD);
-  static constexpr size_t SMEM = STAT_OFF + round128(sizeof(float) * 2 * R);
-  // The dln staging tile aliases the lnb and dyb tiles once the chunks are done.
-  static constexpr size_t O_OFF = LN_OFF;
-  static_assert(sizeof(float) * R * LDO <= H_OFF - LN_OFF, "dln staging does not fit");
-  static_assert(C % (WARPS * 16) == 0, "C must be a multiple of 128");
-};
+__device__ __forceinline__ void bf16x8(const uint4& u, float (&o)[8]) {
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) o[t] = __bfloat162float(e[t]);
+}
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-fused_mlp_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                          const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1,
-                          const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                          const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dx,
-                          __nv_bfloat16* __restrict__ lnb, __nv_bfloat16* __restrict__ ab,
-                          __nv_bfloat16* __restrict__ dhb, float* __restrict__ part, int m,
-                          int hidden) {
-  using S = Shape<C>;
-  constexpr int R = S::R;
-  constexpr int PER_LANE = C / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sLn = reinterpret_cast<__nv_bfloat16*>(smem + S::LN_OFF);
-  __nv_bfloat16* sDy = reinterpret_cast<__nv_bfloat16*>(smem + S::DY_OFF);
-  float* sH = reinterpret_cast<float*>(smem + S::H_OFF);
-  float* sDa = reinterpret_cast<float*>(smem + S::DA_OFF);
-  __nv_bfloat16* sDh = reinterpret_cast<__nv_bfloat16*>(smem + S::DH_OFF);
-  float* sMu = reinterpret_cast<float*>(smem + S::STAT_OFF);
-  float* sRstd = sMu + R;
-  float* sO = reinterpret_cast<float*>(smem + S::O_OFF);
+__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
+}
 
-  const int r0 = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const long long part_pitch = 3LL * C + hidden;
-  float* my_part = part + blockIdx.x * part_pitch;
-
-  // LayerNorm (two-pass f32) of the block's rows: lnb into shared memory and
-  // to global memory for the weight gradients, dyb into shared memory; rows
-  // past m are zero.
-  for (int r = warp; r < R; r += WARPS) {
-    __nv_bfloat16* dst = sLn + r * S::LDL;
-    __nv_bfloat16* dyd = sDy + r * S::LDL;
-    if (r0 + r >= m) {
-      for (int k = lane; k < C; k += 32) {
-        dst[k] = __float2bfloat16(0.f);
-        dyd[k] = __float2bfloat16(0.f);
-      }
-      if (lane == 0) sMu[r] = sRstd[r] = 0.f;
-      continue;
-    }
-    const long long row = (long long)(r0 + r) * C;
-    float v[PER_LANE];
-    float s = 0.f;
+// A row's x as f32 in a lane's LC chunks (chunk lane + 32 i: 8 columns) and
+// its two-pass statistics, summed in the lane's order and then over the warp
+// by a fixed tree.
+template <int LC>
+__device__ __forceinline__ void row_stats(const __nv_bfloat16* x, long long row, int c, int lane,
+                                          float (&v)[LC][8], float& mu, float& rstd) {
+  const int chunks = c / 8;
+  float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      v[i] = __bfloat162float(x[row + lane + 32 * i]);
-      s += v[i];
-    }
+  for (int i = 0; i < LC; ++i) {
+    if (lane + 32 * i < chunks) {
+      bf16x8(*reinterpret_cast<const uint4*>(x + row * c + 8 * (lane + 32 * i)), v[i]);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mu = s / C;
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) ss += (v[i] - mu) * (v[i] - mu);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float rstd = rsqrtf(ss / C + LN_EPS);
-#pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int k = lane + 32 * i;
-      const __nv_bfloat16 l = __float2bfloat16((v[i] - mu) * rstd * gamma[k] + beta[k]);
-      dst[k] = l;
-      lnb[row + k] = l;
-      dyd[k] = dy[row + k];
-    }
-    if (lane == 0) {
-      sMu[r] = mu;
-      sRstd[r] = rstd;
+      for (int t = 0; t < 8; ++t) s += v[i][t];
     }
   }
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dln[S::FR][S::FC];
+  mu = warp_sum(s) / c;
+  float ss = 0.f;
 #pragma unroll
-  for (int i = 0; i < S::FR; ++i)
+  for (int i = 0; i < LC; ++i)
+    if (lane + 32 * i < chunks)
 #pragma unroll
-    for (int f = 0; f < S::FC; ++f) wmma::fill_fragment(dln[i][f], 0.f);
-  const int c_warp = warp * (C / WARPS);  // this warp's dln columns
-
-  for (int j0 = 0; j0 < hidden; j0 += HC) {
-    const int jw = j0 + warp * 16;  // this warp's 16 hidden columns
-    // h = lnb W1^T and da = dyb W2 for those columns, f32 accumulation.
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hf[S::FR], daf[S::FR];
-#pragma unroll
-    for (int i = 0; i < S::FR; ++i) {
-      wmma::fill_fragment(hf[i], 0.f);
-      wmma::fill_fragment(daf[i], 0.f);
-    }
-#pragma unroll 2
-    for (int k = 0; k < C; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fw1;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fw2;
-      wmma::load_matrix_sync(fw1, w1 + (long long)jw * C + k, C);
-      wmma::load_matrix_sync(fw2, w2 + (long long)k * hidden + jw, hidden);
-#pragma unroll
-      for (int i = 0; i < S::FR; ++i) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sLn + i * 16 * S::LDL + k, S::LDL);
-        wmma::mma_sync(hf[i], fa, fw1, hf[i]);
-        wmma::load_matrix_sync(fa, sDy + i * 16 * S::LDL + k, S::LDL);
-        wmma::mma_sync(daf[i], fa, fw2, daf[i]);
+      for (int t = 0; t < 8; ++t) {
+        const float d = v[i][t] - mu;
+        ss += d * d;
       }
-    }
-#pragma unroll
-    for (int i = 0; i < S::FR; ++i) {
-      wmma::store_matrix_sync(sH + i * 16 * LDH + warp * 16, hf[i], LDH, wmma::mem_row_major);
-      wmma::store_matrix_sync(sDa + i * 16 * LDH + warp * 16, daf[i], LDH, wmma::mem_row_major);
-    }
-    __syncthreads();  // h and da complete; every warp is done reading the previous dhb
+  rstd = rsqrtf(warp_sum(ss) / c + LN_EPS);
+}
 
-    // One thread per hidden column walks the rows in order: ab, dh, dhb and
-    // the block's db1 partial.
-    if (tid < HC) {
-      const int j = tid;
-      const float bj = b1[j0 + j];
-      float db1 = 0.f;
-      for (int r = 0; r < R; ++r) {
-        float dh = 0.f;
-        if (r0 + r < m) {
-          const float hv = sH[r * LDH + j] + bj;
-          const float cdf = 0.5f * (1.f + erff(hv * SQRT_HALF));
-          const long long off = (long long)(r0 + r) * hidden + j0 + j;
-          ab[off] = __float2bfloat16(hv * cdf);
-          dh = sDa[r * LDH + j] * (cdf + hv * expf(-0.5f * hv * hv) * INV_SQRT_2PI);
-          dhb[off] = __float2bfloat16(dh);
-          db1 += dh;
-        }
-        sDh[r * LDD + j] = __float2bfloat16(dh);
-      }
-      my_part[3 * C + j0 + j] = db1;
-    }
-    __syncthreads();
-
-    // dln[:, this warp's columns] += dhb W1[chunk, :].
+// lnb = bf16((x - mu) rstd gamma + beta), one warp per row; a lane holds LC
+// 8-column chunks (C <= 256 LC).
+template <int LC>
+__global__ void __launch_bounds__(ROW_THREADS)
+fused_mlp_bwd_norm(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, __nv_bfloat16* __restrict__ lnb, int m, int c) {
+  const int row = blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= m) return;
+  float v[LC][8], mu, rstd;
+  row_stats<LC>(x, row, c, lane, v, mu, rstd);
 #pragma unroll
-    for (int kk = 0; kk < HC / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[S::FR];
+  for (int i = 0; i < LC; ++i) {
+    const int q = lane + 32 * i;
+    if (q < c / 8) {
+      float g[8], b[8];
+      load8(gamma + 8 * q, g);
+      load8(beta + 8 * q, b);
+      uint4 u;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
 #pragma unroll
-      for (int i = 0; i < S::FR; ++i)
-        wmma::load_matrix_sync(fa[i], sDh + i * 16 * LDD + kk * 16, LDD);
-#pragma unroll
-      for (int f = 0; f < S::FC; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, w1 + (long long)(j0 + kk * 16) * C + c_warp + f * 16, C);
-#pragma unroll
-        for (int i = 0; i < S::FR; ++i) wmma::mma_sync(dln[i][f], fa[i], fb, dln[i][f]);
-      }
+      for (int t = 0; t < 8; ++t) e[t] = __float2bfloat16((v[i][t] - mu) * rstd * g[t] + b[t]);
+      *reinterpret_cast<uint4*>(lnb + static_cast<long long>(row) * c + 8 * q) = u;
     }
   }
+}
 
-  __syncthreads();  // the lnb and dyb tiles are dead: the dln staging tile may alias them
-#pragma unroll
-  for (int i = 0; i < S::FR; ++i)
-#pragma unroll
-    for (int f = 0; f < S::FC; ++f)
-      wmma::store_matrix_sync(sO + i * 16 * S::LDO + c_warp + f * 16, dln[i][f], S::LDO,
-                              wmma::mem_row_major);
-  __syncthreads();
+using Hidden = StreamLayout<2, 2, GeluPair::C_TILES, GeluPair::SCRATCH>;
+constexpr int DLN_TILES = 3;  // column tiles of dln per pass over dhb (C = 384 in one)
+using Dln = StreamLayout<2, 1, F32Out::C_TILES, F32Out::SCRATCH, DLN_TILES>;
 
-  // LayerNorm backward, one warp per row: dx = bf16(dy + rstd (dxh -
-  // mean(dxh) - xhat mean(dxh xhat))).
-  for (int r = warp; r < R; r += WARPS) {
-    if (r0 + r >= m) continue;
-    const long long row = (long long)(r0 + r) * C;
-    const float mu = sMu[r], rstd = sRstd[r];
-    float xh[PER_LANE], dxh[PER_LANE];
+__global__ void __launch_bounds__(Hidden::THREADS, 1)
+fused_mlp_bwd_hidden(const __grid_constant__ CUtensorMap map_lnb,
+                     const __grid_constant__ CUtensorMap map_w1,
+                     const __grid_constant__ CUtensorMap map_dy,
+                     const __grid_constant__ CUtensorMap map_w2,
+                     const __grid_constant__ CUtensorMap map_ab,
+                     const __grid_constant__ CUtensorMap map_dhb, const GeluPair epi, int m, int k,
+                     int nout, int stages, int tiles_per_cta) {
+  dinox_gemm::gemm_stream<2, WForm::KMajor, WForm::MNMajor, 1>(
+      &map_lnb, &map_w1, &map_dy, &map_w2, &map_ab, &map_dhb, epi, m, k, nout, stages,
+      tiles_per_cta);
+}
+
+__global__ void __launch_bounds__(Dln::THREADS, 1)
+fused_mlp_bwd_dln(const __grid_constant__ CUtensorMap map_dhb, const __grid_constant__ CUtensorMap map_w1,
+                  const F32Out epi, int m, int k, int nout, int stages, int tiles_per_cta) {
+  dinox_gemm::gemm_stream<2, WForm::MNMajor, WForm::MNMajor, DLN_TILES>(
+      &map_dhb, &map_w1, &map_dhb, &map_w1, nullptr, nullptr, epi, m, k, nout, stages, tiles_per_cta);
+}
+
+// dx and the 64-row block's partial sums of dgamma, dbeta and db2 (columns
+// 0, c and 2c of its row of `part`). A warp takes rows warp, warp + 8, ...
+// of the block and keeps its lanes' column sums over them in registers; the
+// eight warps' sums meet in shared memory ((3 c) floats each) and are added
+// in warp order.
+template <int LC>
+__global__ void __launch_bounds__(ROW_THREADS)
+fused_mlp_bwd_dx(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+                 const float* __restrict__ dln, const __nv_bfloat16* __restrict__ dy,
+                 __nv_bfloat16* __restrict__ dx, float* __restrict__ part, int m, int c, int pitch) {
+  extern __shared__ float sums[];  // [ROW_WARPS][3 c]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * BLOCK;
+  const int rows = min(BLOCK, m - r0);
+  const int chunks = c / 8;
+  float sg[LC][8], sb[LC][8], sy[LC][8];  // this lane's sums of dln xhat, dln, dy
+#pragma unroll
+  for (int i = 0; i < LC; ++i)
+#pragma unroll
+    for (int t = 0; t < 8; ++t) sg[i][t] = sb[i][t] = sy[i][t] = 0.f;
+  for (int r = warp; r < rows; r += ROW_WARPS) {
+    const long long row = r0 + r;
+    float v[LC][8], mu, rstd;
+    row_stats<LC>(x, row, c, lane, v, mu, rstd);
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int k = lane + 32 * i;
-      xh[i] = (__bfloat162float(x[row + k]) - mu) * rstd;
-      dxh[i] = sO[r * S::LDO + k] * gamma[k];
-      s1 += dxh[i];
-      s2 += dxh[i] * xh[i];
+    for (int i = 0; i < LC; ++i) {
+      const int q = lane + 32 * i;
+      if (q < chunks) {
+        float d[8], g[8];
+        load8(dln + row * c + 8 * q, d);
+        load8(gamma + 8 * q, g);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          v[i][t] = (v[i][t] - mu) * rstd;  // xhat from here on
+          sg[i][t] += d[t] * v[i][t];
+          sb[i][t] += d[t];
+          const float dxh = d[t] * g[t];
+          s1 += dxh;
+          s2 += dxh * v[i][t];
+        }
+      }
     }
+    const float mean1 = warp_sum(s1) / c, mean2 = warp_sum(s2) / c;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mean1 = s1 / C, mean2 = s2 / C;
+    for (int i = 0; i < LC; ++i) {
+      const int q = lane + 32 * i;
+      if (q < chunks) {
+        float d[8], g[8], y[8];
+        load8(dln + row * c + 8 * q, d);  // a second read, from L1
+        load8(gamma + 8 * q, g);
+        uint4 u = *reinterpret_cast<const uint4*>(dy + row * c + 8 * q);
+        bf16x8(u, y);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&u);
 #pragma unroll
-    for (int i = 0; i < PER_LANE; ++i) {
-      const int k = lane + 32 * i;
-      dx[row + k] = __float2bfloat16(__bfloat162float(dy[row + k]) +
-                                     rstd * (dxh[i] - mean1 - xh[i] * mean2));
-    }
-  }
-
-  // The block's partial sums of dgamma, dbeta and db2, one thread per column
-  // walking the rows in order.
-  for (int c = tid; c < C; c += THREADS) {
-    float dg = 0.f, db = 0.f, d2 = 0.f;
-    for (int r = 0; r < R && r0 + r < m; ++r) {
-      const long long off = (long long)(r0 + r) * C + c;
-      const float d = sO[r * S::LDO + c];
-      dg += d * ((__bfloat162float(x[off]) - sMu[r]) * sRstd[r]);
-      db += d;
-      d2 += __bfloat162float(dy[off]);
-    }
-    my_part[c] = dg;
-    my_part[C + c] = db;
-    my_part[2 * C + c] = d2;
-  }
-}
-
-// Weight gradients: out[s] (mo x no, f32, row-major) = sum over the rows of
-// range s of P[r, :]^T Q[r, :], for P (m x mo) and Q (m x no) bf16. blockIdx.x
-// picks a 64 x 128 tile of dW2 = dyb^T ab (mo = C, no = hidden) or, past
-// those, of dW1 = dhb^T lnb (mo = hidden, no = C); blockIdx.y the row range.
-constexpr int WM = 64, WN = 128, WK = 32;
-constexpr int LDP = WM + 8, LDQ = WN + 8;
-constexpr int WTHREADS = 128;
-
-__global__ void __launch_bounds__(WTHREADS)
-fused_mlp_bwd_weights_kernel(const __nv_bfloat16* __restrict__ dy,
-                             const __nv_bfloat16* __restrict__ ab,
-                             const __nv_bfloat16* __restrict__ dhb,
-                             const __nv_bfloat16* __restrict__ lnb, float* __restrict__ wpart,
-                             int m, int c, int hidden, int rows_per_range) {
-  __shared__ __align__(128) __nv_bfloat16 sP[WK * LDP];
-  __shared__ __align__(128) __nv_bfloat16 sQ[WK * LDQ];
-  const int tiles = (c / WM) * (hidden / WN);  // tiles of each product (c*hidden / 8192)
-  const bool first = blockIdx.x < tiles;
-  const int t = first ? blockIdx.x : blockIdx.x - tiles;
-  const int mo = first ? c : hidden, no = first ? hidden : c;
-  const __nv_bfloat16* p = first ? dy : dhb;
-  const __nv_bfloat16* q = first ? ab : lnb;
-  const int m0 = (t / (no / WN)) * WM, n0 = (t % (no / WN)) * WN;
-  const int k_begin = blockIdx.y * rows_per_range;
-  const int k_end = min(m, k_begin + rows_per_range);
-  float* out = wpart + (long long)blockIdx.y * 2 * c * hidden + (first ? 0 : (long long)c * hidden);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 32 x 64 quarter of the tile
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += WK) {
-    __syncthreads();
-    for (int i = tid; i < WK * (WM / 8); i += WTHREADS) {
-      const int r = i / (WM / 8), col = (i % (WM / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < k_end) v = *reinterpret_cast<const uint4*>(p + (long long)(k0 + r) * mo + m0 + col);
-      *reinterpret_cast<uint4*>(sP + r * LDP + col) = v;
-    }
-    for (int i = tid; i < WK * (WN / 8); i += WTHREADS) {
-      const int r = i / (WN / 8), col = (i % (WN / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < k_end) v = *reinterpret_cast<const uint4*>(q + (long long)(k0 + r) * no + n0 + col);
-      *reinterpret_cast<uint4*>(sQ + r * LDQ + col) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], sP + kk * 16 * LDP + wm * 32 + i * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sQ + kk * 16 * LDQ + wn * 64 + j * 16, LDQ);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+        for (int t = 0; t < 8; ++t) {
+          sy[i][t] += y[t];
+          e[t] = __float2bfloat16(y[t] + rstd * (d[t] * g[t] - mean1 - v[i][t] * mean2));
+        }
+        *reinterpret_cast<uint4*>(dx + row * c + 8 * q) = u;
       }
     }
   }
+  float* mine = sums + warp * 3 * c;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < LC; ++i) {
+    const int q = lane + 32 * i;
+    if (q < chunks)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(out + (long long)(m0 + wm * 32 + i * 16) * no + n0 + wn * 64 + j * 16,
-                              acc[i][j], no, wmma::mem_row_major);
-}
-
-// out[i] = sum over ranges of wpart[s][i] for the 2*c*hidden weight
-// gradients, then sum over row blocks of part[b][j] for the 3*c + hidden
-// vector gradients, each in index order.
-__global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ wpart,
-                                            const float* __restrict__ part,
-                                            float* __restrict__ out, int ranges, int blocks,
-                                            long long weights, int vectors) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < weights) {
-    float s = 0.f;
-    for (int r = 0; r < ranges; ++r) s += wpart[r * weights + i];
-    out[i] = s;
-  } else if (i < weights + vectors) {
-    const long long j = i - weights;
-    float s = 0.f;
-#pragma unroll 8
-    for (int b = 0; b < blocks; ++b) s += part[b * (long long)vectors + j];
-    out[i] = s;
+      for (int t = 0; t < 8; ++t) {
+        mine[8 * q + t] = sg[i][t];
+        mine[c + 8 * q + t] = sb[i][t];
+        mine[2 * c + 8 * q + t] = sy[i][t];
+      }
+  }
+  __syncthreads();
+  float* out = part + static_cast<long long>(blockIdx.x) * pitch;
+  for (int j = threadIdx.x; j < 3 * c; j += ROW_THREADS) {
+    float t = sums[j];
+#pragma unroll
+    for (int w = 1; w < ROW_WARPS; ++w) t += sums[w * 3 * c + j];
+    out[j] = t;
   }
 }
 
-template <int C>
-cudaError_t launch_rows(const void* x, const void* gamma, const void* beta, const void* w1,
-                        const void* b1, const void* w2, const void* dy, void* dx, void* lnb,
-                        void* ab, void* dhb, void* part, int m, int hidden, cudaStream_t stream) {
-  using S = Shape<C>;
-  cudaError_t err = cudaFuncSetAttribute(fused_mlp_bwd_rows_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(S::SMEM));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((m + S::R - 1) / S::R);
-  fused_mlp_bwd_rows_kernel<C><<<grid, THREADS, S::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dx),
-      static_cast<__nv_bfloat16*>(lnb), static_cast<__nv_bfloat16*>(ab),
-      static_cast<__nv_bfloat16*>(dhb), static_cast<float*>(part), m, hidden);
-  return cudaGetLastError();
+// Tiles of each weight gradient: dW2 (c, hidden) in wide 128 x 256 tiles,
+// dW1 (hidden, c) in tall 256 x 128 ones, the same count.
+__host__ __device__ int wgrad_tiles(int c, int hidden) {
+  return ((c + dinox_gemm::WG_SHORT - 1) / dinox_gemm::WG_SHORT) *
+         ((hidden + dinox_gemm::WG_LONG - 1) / dinox_gemm::WG_LONG);
+}
+
+__global__ void __launch_bounds__(dinox_gemm::WG_THREADS, 1)
+fused_mlp_bwd_weights(const __grid_constant__ CUtensorMap map_dy,
+                      const __grid_constant__ CUtensorMap map_ab,
+                      const __grid_constant__ CUtensorMap map_dhb,
+                      const __grid_constant__ CUtensorMap map_lnb, float* __restrict__ wpart, int m,
+                      int c, int hidden, int rows_per_chunk, int stages) {
+  // blockIdx.x: a tile of dW2 = dyb^T ab or, past those, of dW1 = dhb^T
+  // lnb; blockIdx.y: the row chunk.
+  constexpr int S = dinox_gemm::WG_SHORT, L = dinox_gemm::WG_LONG;
+  const int per = wgrad_tiles(c, hidden);
+  const bool first = static_cast<int>(blockIdx.x) < per;
+  const int t = first ? blockIdx.x : blockIdx.x - per;
+  const int r0 = blockIdx.y * rows_per_chunk;
+  const int steps = (min(m, r0 + rows_per_chunk) - r0 + 63) / 64;
+  float* out = wpart + static_cast<long long>(blockIdx.y) * 2 * c * hidden +
+               (first ? 0 : static_cast<long long>(c) * hidden);
+  if (first) {  // wide tiles of dW2: (c / 128) x (hidden / 256)
+    const int cols = (hidden + L - 1) / L;
+    dinox_gemm::gemm_wgrad(&map_dy, &map_ab, out, c, hidden, (t / cols) * S, (t % cols) * L, true,
+                           r0, steps, stages);
+  } else {  // tall tiles of dW1: (hidden / 256) x (c / 128)
+    const int cols = (c + S - 1) / S;
+    dinox_gemm::gemm_wgrad(&map_dhb, &map_lnb, out, hidden, c, (t / cols) * L, (t % cols) * S, false,
+                           r0, steps, stages);
+  }
+}
+
+// out[i] = sum over chunks of wpart[s][i] for the 2 c hidden weight
+// gradients (blocks below `wgrid`, one thread per element), then, for the
+// 3 c + hidden vector gradients (32 columns a block), the sum over the row
+// blocks' partials: run g of 8 adds blocks g, g + 8, ... in order, and the
+// runs are added 0 to 7.
+__global__ void __launch_bounds__(256)
+fused_mlp_bwd_reduce(const float* __restrict__ wpart, const float* __restrict__ part,
+                     float* __restrict__ out, int chunks, int blocks, long long weights,
+                     int vectors, int wgrid) {
+  if (static_cast<int>(blockIdx.x) < wgrid) {
+    const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+    if (i < weights) {
+      float s = 0.f;
+      for (int k = 0; k < chunks; ++k) s += wpart[k * weights + i];
+      out[i] = s;
+    }
+    return;
+  }
+  __shared__ float runs[RED_RUNS][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int j = (blockIdx.x - wgrid) * 32 + lane;
+  float s = 0.f;
+  if (j < vectors)
+    for (int b = g; b < blocks; b += RED_RUNS) s += part[static_cast<long long>(b) * vectors + j];
+  runs[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && j < vectors) {
+    float t = runs[0][lane];
+#pragma unroll
+    for (int r = 1; r < RED_RUNS; ++r) t += runs[r][lane];
+    out[weights + j] = t;
+  }
+}
+
+bool takes(int c, int hidden) {
+  return c > 0 && c % 8 == 0 && c <= MAX_C && hidden > 0 && hidden % 8 == 0;
+}
+
+// The row kernels' instantiation: a lane holds 2 chunks of 8 columns up to
+// C = 512, else 6 (up to 1536).
+bool narrow(int c) { return c <= 2 * 256; }
+int dx_smem(int c) { return ROW_WARPS * 3 * c * static_cast<int>(sizeof(float)); }
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
 }
 
 }  // namespace
 
-// x, dy, dx, lnb: (m, c) bf16; ab, dhb: (m, hidden) bf16; gamma, beta: (c,)
-// f32; w1: (hidden, c) bf16; b1: (hidden,) f32; w2: (c, hidden) bf16; part:
-// (ceil(m / R), 3*c + hidden) f32 with R = 32 for c <= 768, else 16. All
-// contiguous and 32-byte aligned; c one of 384, 768, 1024, 1408; hidden a
-// multiple of 128. Returns the cudaError_t of the launch.
-extern "C" int dinox_fused_mlp_bwd_rows_bf16(const void* x, const void* gamma, const void* beta,
-                                             const void* w1, const void* b1, const void* w2,
-                                             const void* dy, void* dx, void* lnb, void* ab,
-                                             void* dhb, void* part, int m, int c, int hidden,
-                                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hidden % 128) return static_cast<int>(cudaErrorInvalidValue);
-  switch (c) {
-    case 384:
-      return static_cast<int>(launch_rows<384>(x, gamma, beta, w1, b1, w2, dy, dx, lnb, ab, dhb,
-                                               part, m, hidden, s));
-    case 768:
-      return static_cast<int>(launch_rows<768>(x, gamma, beta, w1, b1, w2, dy, dx, lnb, ab, dhb,
-                                               part, m, hidden, s));
-    case 1024:
-      return static_cast<int>(launch_rows<1024>(x, gamma, beta, w1, b1, w2, dy, dx, lnb, ab, dhb,
-                                                part, m, hidden, s));
-    case 1408:
-      return static_cast<int>(launch_rows<1408>(x, gamma, beta, w1, b1, w2, dy, dx, lnb, ab, dhb,
-                                                part, m, hidden, s));
+// x, dy: (m, c) bf16; gamma, beta: (c,) f32; w1: (hidden, c) bf16; b1:
+// (hidden,) f32; w2: (c, hidden) bf16. Workspace: lnb (m, c) bf16; ab, dhb
+// (m, hidden) bf16; dln (m, c) f32; part (ceil(m / 64), 3 c + hidden) f32;
+// wpart (chunks, 2 c hidden) f32. Outputs: dx (m, c) bf16; out (2 c hidden +
+// 3 c + hidden) f32 = [dW2 | dW1 | dgamma | dbeta | db2 | db1]. All contiguous
+// and 16-byte aligned. Each entry point makes one launch on `stream` and
+// returns its cudaError_t.
+
+extern "C" int dinox_fused_mlp_bwd_norm_bf16(const void* x, const void* gamma, const void* beta,
+                                             void* lnb, int m, int c, void* stream) {
+  if (!takes(c, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = narrow(c) ? fused_mlp_bwd_norm<2> : fused_mlp_bwd_norm<6>;
+  kernel<<<(m + ROW_WARPS - 1) / ROW_WARPS, ROW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<__nv_bfloat16*>(lnb), m, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dinox_fused_mlp_bwd_hidden_bf16(const void* lnb, const void* dy, const void* w1,
+                                               const void* b1, const void* w2, void* ab, void* dhb,
+                                               void* part, int m, int c, int hidden, void* stream) {
+  if (!takes(c, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  dinox_gemm::Grid g;
+  cudaError_t err = dinox_gemm::stream_grid<Hidden>(fused_mlp_bwd_hidden, m, hidden, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_lnb, map_w1, map_dy, map_w2, map_ab, map_dhb;
+  if ((err = dinox_gemm::encode_rows_map(&map_lnb, lnb, m, c, Hidden::BM)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_w1, w1, hidden, c, BN)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_dy, dy, m, c, Hidden::BM)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_w2, w2, c, hidden, 64)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_ab, ab, m, hidden, 64)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_dhb, dhb, m, hidden, 64)) != cudaSuccess)
+    return static_cast<int>(err);
+  fused_mlp_bwd_hidden<<<dim3(g.rows, g.groups), Hidden::THREADS, g.smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      map_lnb, map_w1, map_dy, map_w2, map_ab, map_dhb,
+      GeluPair{static_cast<const float*>(b1), static_cast<float*>(part), 3 * c + hidden, 3 * c}, m,
+      c, hidden, g.stages, g.per_cta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dinox_fused_mlp_bwd_dln_bf16(const void* dhb, const void* w1, void* dln, int m, int c,
+                                            int hidden, void* stream) {
+  if (!takes(c, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  dinox_gemm::Grid g;
+  cudaError_t err = dinox_gemm::stream_grid<Dln>(fused_mlp_bwd_dln, m, c, &g);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_dhb, map_w1;
+  if ((err = dinox_gemm::encode_rows_map(&map_dhb, dhb, m, hidden, Dln::BM)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_w1, w1, hidden, c, 64)) != cudaSuccess)
+    return static_cast<int>(err);
+  fused_mlp_bwd_dln<<<dim3(g.rows, g.groups), Dln::THREADS, g.smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      map_dhb, map_w1, F32Out{static_cast<float*>(dln)}, m, hidden, c, g.stages, g.per_cta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dinox_fused_mlp_bwd_dx_bf16(const void* x, const void* gamma, const void* dln,
+                                           const void* dy, void* dx, void* part, int m, int c,
+                                           int hidden, void* stream) {
+  if (!takes(c, hidden)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = narrow(c) ? fused_mlp_bwd_dx<2> : fused_mlp_bwd_dx<6>;
+  const int smem = dx_smem(c);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(m + BLOCK - 1) / BLOCK, ROW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(dln), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(part), m, c, 3 * c + hidden);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The weights launch's split: `chunks` row chunks of `rows_per_chunk` rows
+// (a multiple of 64, each chunk starting below m), the fewest that keep at
+// least 90% of the SMs' resident CTA slots busy in the last wave (else the
+// count with the best such share), and the resident CTAs per SM. Returns a
+// cudaError_t.
+extern "C" int dinox_fused_mlp_bwd_chunks(int m, int c, int hidden, int* chunks, int* rows_per_chunk,
+                                          int* ctas) {
+  if (!takes(c, hidden) || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = dinox_gemm::wgrad_stages();
+  int regs = 0, smem = 0;
+  cudaError_t err = dinox_gemm::occupancy(fused_mlp_bwd_weights, dinox_gemm::WG_THREADS,
+                                          dinox_gemm::wgrad_dynamic(stages), &regs, &smem, ctas);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long slots = static_cast<long long>(sm_count()) * *ctas;
+  if (slots < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = 2LL * wgrad_tiles(c, hidden);
+  const int blocks = (m + 63) / 64;
+  int best = 1;
+  double best_share = 0.0;
+  for (int n = 1; n <= MAX_CHUNKS && n <= blocks; ++n) {
+    const long long ctas_n = n * tiles;
+    const double share = static_cast<double>(ctas_n) / (((ctas_n + slots - 1) / slots) * slots);
+    if (ctas_n >= slots && share >= 0.9) {
+      best = n;
+      break;
+    }
+    if (share > best_share + 1e-9) {
+      best_share = share;
+      best = n;
+    }
+  }
+  const int per = (blocks + best - 1) / best;
+  *rows_per_chunk = 64 * per;
+  *chunks = (blocks + per - 1) / per;
+  return 0;
+}
+
+extern "C" int dinox_fused_mlp_bwd_weights_bf16(const void* dy, const void* ab, const void* dhb,
+                                                const void* lnb, void* wpart, int m, int c,
+                                                int hidden, int chunks, int rows_per_chunk,
+                                                void* stream) {
+  if (!takes(c, hidden) || chunks < 1 || rows_per_chunk % 64 ||
+      static_cast<long long>(chunks - 1) * rows_per_chunk >= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int stages = dinox_gemm::wgrad_stages();
+  const int smem = dinox_gemm::wgrad_dynamic(stages);
+  cudaError_t err = cudaFuncSetAttribute(fused_mlp_bwd_weights,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_dy, map_ab, map_dhb, map_lnb;
+  if ((err = dinox_gemm::encode_rows_map(&map_dy, dy, m, c, 64)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_ab, ab, m, hidden, 64)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_dhb, dhb, m, hidden, 64)) != cudaSuccess ||
+      (err = dinox_gemm::encode_rows_map(&map_lnb, lnb, m, c, 64)) != cudaSuccess)
+    return static_cast<int>(err);
+  fused_mlp_bwd_weights<<<dim3(2 * wgrad_tiles(c, hidden), chunks), dinox_gemm::WG_THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      map_dy, map_ab, map_dhb, map_lnb, static_cast<float*>(wpart), m, c, hidden, rows_per_chunk,
+      stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dinox_fused_mlp_bwd_reduce(const void* wpart, const void* part, void* out, int chunks,
+                                          int blocks, int c, int hidden, void* stream) {
+  const long long weights = 2LL * c * hidden;
+  const int vectors = 3 * c + hidden;
+  const int wgrid = static_cast<int>((weights + 255) / 256);
+  fused_mlp_bwd_reduce<<<wgrid + (vectors + 31) / 32, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(wpart), static_cast<const float*>(part), static_cast<float*>(out),
+      chunks, blocks, weights, vectors, wgrid);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, dynamic shared memory per CTA (bytes) and resident
+// CTAs per SM of launch `part` (0 norm, 1 hidden, 2 dln, 3 dx, 4 weights, 5
+// reduce) at width c. Returns a cudaError_t.
+extern "C" int dinox_fused_mlp_bwd_occupancy(int part, int c, int* regs, int* smem, int* ctas) {
+  if (!takes(c, 8)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (part) {
+    case 0:
+      return static_cast<int>(dinox_gemm::occupancy(narrow(c) ? fused_mlp_bwd_norm<2> : fused_mlp_bwd_norm<6>,
+                                                    ROW_THREADS, 0, regs, smem, ctas));
+    case 1:
+      return static_cast<int>(dinox_gemm::occupancy(fused_mlp_bwd_hidden, Hidden::THREADS,
+                                                    Hidden::dynamic(Hidden::stages()), regs, smem, ctas));
+    case 2:
+      return static_cast<int>(dinox_gemm::occupancy(fused_mlp_bwd_dln, Dln::THREADS,
+                                                    Dln::dynamic(Dln::stages()), regs, smem, ctas));
+    case 3:
+      return static_cast<int>(dinox_gemm::occupancy(narrow(c) ? fused_mlp_bwd_dx<2> : fused_mlp_bwd_dx<6>,
+                                                    ROW_THREADS, dx_smem(c), regs, smem, ctas));
+    case 4:
+      return static_cast<int>(dinox_gemm::occupancy(fused_mlp_bwd_weights, dinox_gemm::WG_THREADS,
+                                                    dinox_gemm::wgrad_dynamic(dinox_gemm::wgrad_stages()),
+                                                    regs, smem, ctas));
+    case 5:
+      return static_cast<int>(dinox_gemm::occupancy(fused_mlp_bwd_reduce, 256, 0, regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// wpart: (chunks, 2*c*hidden) f32, each range's dW2 (c, hidden) then dW1
-// (hidden, c). c a multiple of 64 and of 128 for dW1's columns; hidden a
-// multiple of 128. Rows split into `chunks` ranges of a multiple of 32 rows.
-extern "C" int dinox_fused_mlp_bwd_weights_bf16(const void* dy, const void* ab, const void* dhb,
-                                                const void* lnb, void* wpart, int m, int c,
-                                                int hidden, int chunks, void* stream) {
-  if (c % 128 || hidden % 128 || chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_range = ((m + chunks - 1) / chunks + WK - 1) / WK * WK;
-  const dim3 grid(2 * (c / WM) * (hidden / WN), chunks);
-  fused_mlp_bwd_weights_kernel<<<grid, WTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(ab),
-      static_cast<const __nv_bfloat16*>(dhb), static_cast<const __nv_bfloat16*>(lnb),
-      static_cast<float*>(wpart), m, c, hidden, rows_per_range);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out: (2*c*hidden + 3*c + hidden) f32 = [dW2 | dW1 | dgamma | dbeta | db2 | db1]
-// from wpart (chunks, 2*c*hidden) and part (blocks, 3*c + hidden).
-extern "C" int dinox_fused_mlp_bwd_reduce(const void* wpart, const void* part, void* out,
-                                          int chunks, int blocks, int c, int hidden,
-                                          void* stream) {
-  const long long weights = 2LL * c * hidden;
-  const int vectors = 3 * c + hidden;
-  const long long total = weights + vectors;
-  const int threads = 256;
-  const dim3 grid(static_cast<unsigned>((total + threads - 1) / threads));
-  fused_mlp_bwd_reduce_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wpart), static_cast<const float*>(part),
-      static_cast<float*>(out), chunks, blocks, weights, vectors);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -4,44 +4,58 @@ versions.
 
 Forward: replaces the fused-MLP ``_fwd_kernel`` (dinox_tpu/ops/fused_mlp.py,
 reached through ``_fwd`` and ``fused_mlp_block``). The kernel is
-``csrc/fused_mlp.cu``: one CTA per block of rows keeps the LN output, one
-hidden chunk of fc1/GELU and the f32 fc2 accumulator on chip, so device
-memory sees x in, y out and the weights. Bound on an H100 SXM at the ViT-S
-training shape (50,112 rows, 384 -> 1536 -> 384): 118.2 GFLOP, the tensor
-cores bound it (0.120 ms at 989 TFLOP/s).
+``csrc/fused_mlp.cu``, two launches on the wgmma + TMA GEMM core
+``csrc/gemm_sm90.cuh``: ``fc1`` (the row-block core with a two-pass
+LayerNorm prologue and a bias + exact-GELU epilogue, writing the bf16
+activation ``a``) and ``fc2`` (the streaming core, A tiles of ``a`` in the
+ring beside the W2 tiles, with a bias + residual epilogue). Bound on an H100
+SXM at the ViT-S training shape (50,112 rows, 384 -> 1536 -> 384): 118.2
+GFLOP, the tensor cores bound it (0.120 ms at 989 TFLOP/s); ``a`` is written
+and read back, so the launches' own bounds sum to 0.129 ms
+(``utils.roofline.fused_mlp_fwd_parts_work``).
 
 Backward: replaces the fused-MLP ``_bwd_kernel`` (``_bwd``). The TPU kernel
 adds dW1, db1, dW2, db2, dgamma and dbeta into constant-index blocks across
 a grid that runs in order; on the GPU the CTAs run at once, so
-``csrc/fused_mlp_bwd.cu`` computes the same function in three launches, with
+``csrc/fused_mlp_bwd.cu`` computes the same function in six launches, with
 no float atomics and a fixed order of summation (the same bits run to run):
 
-* ``rows`` (per block of rows): LN, fc1 and GELU recomputed, da, dh, dx, the
-  block's partial sums of dgamma, dbeta, db1 and db2, and the bf16 values
-  ``lnb``, ``ab`` and ``dhb`` that the TPU kernel feeds its matrix unit;
-* ``weights``: dW2 = ab^T dyb and dW1 = lnb^T dhb over row chunks, one f32
-  partial per chunk;
+* ``norm``: the two-pass LayerNorm, ``lnb``;
+* ``hidden`` (streaming core, two products per hidden tile): h = lnb W1^T
+  and da = dyb W2 (W2 read as stored), ``ab``, ``dhb`` and each 64-row
+  block's sums of dh (db1);
+* ``dln``: dln = dhb W1 in f32 (streaming core, W1 read as stored);
+* ``dx``: the LayerNorm backward and each 64-row block's sums of dgamma,
+  dbeta and db2;
+* ``weights``: dW2 = dyb^T ab and dW1 = dhb^T lnb over row chunks (both
+  operands transposed in shared memory), one f32 partial per chunk;
 * ``reduce``: the chunks' and the row blocks' partials added in order.
 
-Bound at the training shape: 295.6 GFLOP (0.299 ms at 989 TFLOP/s).
+Bound at the training shape: 295.6 GFLOP (0.299 ms at 989 TFLOP/s); the
+launches' own bounds (``fused_mlp_bwd_parts_work``) sum to more, since
+lnb, ab, dhb and dln go through device memory.
 
 Rounding points (the TPU kernel's): LN in f32 with the two-pass variance
 (not the fast variance of the unfused blocks and kernel 6), rounded to the
 working dtype before fc1; the f32 b1 added to the f32 fc1 accumulator;
-exact GELU in f32; ``a`` rounded before fc2; ``y = round(x32 + acc + b2)``.
+exact GELU in f32 (the kernels take erf from the TPU kernel's polynomial,
+within 1.5e-7; the plain versions from ``torch.erf``); ``a`` rounded before
+fc2; ``y = round(x32 + acc + b2)``.
 :func:`mlp_block_reference` is the JAX package's oracle, which rounds fc1's
 product before ``+ b1``; the tests hold both against JAX.
 
 Weights are taken in the port's ``(out, in)`` layout: ``w1`` (hidden, C) is
 the JAX ``w1`` (C, hidden) transposed, ``w2`` (C, hidden) the JAX ``w2``
-transposed. Launch counts: ``fused_mlp_forward.launches``,
-``fused_mlp_bwd_rows.launches``, ``fused_mlp_bwd_weights.launches`` and
-``fused_mlp_bwd_reduce.launches``.
+transposed. Widths: C a multiple of 8 up to 1408 (fc1 holds an x row block
+whole), hidden a multiple of 8. Launch counts: one per launch, on each
+wrapper of :data:`FWD_LAUNCHES` and :data:`BWD_LAUNCHES`
+(``fused_mlp_fwd_fc1.launches``, ``fused_mlp_bwd_hidden.launches``, ...).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -51,17 +65,20 @@ from dinox_torch.ops import _build
 LN_EPS = 1e-5
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
-# Widths the kernels are compiled for (the hidden width is any multiple of 128).
-SUPPORTED_DIMS = (384, 768, 1024, 1408)
-WEIGHT_CHUNKS = 8  # row chunks of the weight-gradient launch
+MAX_DIM = 1408  # the widest x row block fc1 holds in shared memory (gemm_sm90.cuh MAX_K)
+ROW_BLOCK = 64  # rows of a partial-sum block of the backward (its hidden launch's row block)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "dinox_fused_mlp_fwd_bf16": [_P] * 8 + [_I, _I, _I, _P],
-    "dinox_fused_mlp_bwd_rows_bf16": [_P] * 12 + [_I, _I, _I, _P],
-    "dinox_fused_mlp_bwd_weights_bf16": [_P] * 5 + [_I, _I, _I, _I, _P],
-    "dinox_fused_mlp_bwd_reduce": [_P] * 3 + [_I, _I, _I, _I, _P],
+    "dinox_fused_mlp_fwd_fc1_bf16": [_P] * 6 + [_I, _I, _I, _P],
+    "dinox_fused_mlp_fwd_fc2_bf16": [_P] * 5 + [_I, _I, _I, _P],
+    "dinox_fused_mlp_bwd_norm_bf16": [_P] * 4 + [_I, _I, _P],
+    "dinox_fused_mlp_bwd_hidden_bf16": [_P] * 8 + [_I, _I, _I, _P],
+    "dinox_fused_mlp_bwd_dln_bf16": [_P] * 3 + [_I, _I, _I, _P],
+    "dinox_fused_mlp_bwd_dx_bf16": [_P] * 6 + [_I, _I, _I, _P],
+    "dinox_fused_mlp_bwd_weights_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "dinox_fused_mlp_bwd_reduce": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 
@@ -150,10 +167,11 @@ def _check(x2, gamma, beta, w1, b1, w2, extra: dict) -> tuple[int, int, int]:
         raise ValueError(f"rows must be (M, C), got {tuple(x2.shape)}")
     m, c = x2.shape
     hidden = w1.shape[0]
-    if c not in SUPPORTED_DIMS:
-        raise ValueError(f"width {c} not supported by the fused MLP kernels (supported: {SUPPORTED_DIMS})")
-    if hidden % 128:
-        raise ValueError(f"hidden width {hidden} is not a multiple of 128")
+    if c % 8 or not 0 < c <= MAX_DIM:
+        raise ValueError(f"width {c} not taken by the fused MLP kernels (a multiple of 8, at most "
+                         f"{MAX_DIM})")
+    if hidden % 8 or hidden < 8:
+        raise ValueError(f"hidden width {hidden} is not a positive multiple of 8")
     bf16, f32 = torch.bfloat16, torch.float32
     _build.check_operands({"x": (x2, (m, c), bf16), "gamma": (gamma, (c,), f32),
                            "beta": (beta, (c,), f32), "w1": (w1, (hidden, c), bf16),
@@ -162,9 +180,32 @@ def _check(x2, gamma, beta, w1, b1, w2, extra: dict) -> tuple[int, int, int]:
     return m, c, hidden
 
 
+def _ptrs(*tensors) -> list[int]:
+    return [t.data_ptr() for t in tensors]
+
+
+# -- kernel 7: two launches ------------------------------------------------------
+
+def fused_mlp_fwd_fc1(x2, gamma, beta, w1, b1, a) -> None:
+    """Launch fc1: ``a`` (M, hidden) bf16 = gelu(LN(x) W1^T + b1). Operands
+    are checked by :func:`fused_mlp_forward`."""
+    m, c = x2.shape
+    _launch("fused_mlp", "dinox_fused_mlp_fwd_fc1_bf16", x2.device,
+            *_ptrs(x2, gamma, beta, w1, b1, a), m, c, w1.shape[0])
+    fused_mlp_fwd_fc1.launches += 1
+
+
+def fused_mlp_fwd_fc2(a, x2, w2, b2, y) -> None:
+    """Launch fc2: ``y`` = x + (a W2^T + b2)."""
+    m, c = x2.shape
+    _launch("fused_mlp", "dinox_fused_mlp_fwd_fc2_bf16", x2.device, *_ptrs(a, x2, w2, b2, y),
+            m, c, a.shape[1])
+    fused_mlp_fwd_fc2.launches += 1
+
+
 def fused_mlp_forward(x2, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     """Rows ``(M, C)`` -> ``(M, C)``: the plain version for CPU tensors,
-    kernel 7 for CUDA."""
+    kernel 7's two launches for CUDA."""
     if x2.device.type == "cpu":
         return fused_mlp_forward_reference(x2, gamma, beta, w1, b1, w2, b2)
     if x2.device.type != "cuda":
@@ -173,86 +214,151 @@ def fused_mlp_forward(x2, gamma, beta, w1, b1, w2, b2) -> torch.Tensor:
     y = torch.empty_like(x2)
     if m == 0:
         return y
-    _launch("fused_mlp", "dinox_fused_mlp_fwd_bf16", x2.device, x2.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), m, c, hidden)
-    fused_mlp_forward.launches += 1
+    a = torch.empty((m, hidden), dtype=x2.dtype, device=x2.device)
+    fused_mlp_fwd_fc1(x2, gamma, beta, w1, b1, a)
+    fused_mlp_fwd_fc2(a, x2, w2, b2, y)
     return y
 
 
-def row_block(c: int) -> int:
-    """Rows per CTA of the forward and of the backward's row launch."""
-    return 32 if c <= 768 else 16
+# -- kernel 8: six launches ------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _chunks(m: int, c: int, hidden: int, device: torch.device) -> tuple[int, int]:
+    chunks, rows, _ = _build.query("fused_mlp_bwd", "dinox_fused_mlp_bwd_chunks", (m, c, hidden),
+                                   device)
+    return chunks, rows
 
 
-def fused_mlp_bwd_rows(x2, gamma, beta, w1, b1, w2, dy2, dx, lnb, ab, dhb, part) -> None:
-    """Launch the backward's row kernel: writes dx, lnb, ab, dhb and each row
-    block's partial sums ``part`` ``(blocks, 3*C + hidden)`` f32 (dgamma,
-    dbeta, db2, db1). Operands are checked by :func:`fused_mlp_backward`."""
+def weight_chunks(m: int, c: int, hidden: int, device: torch.device | str = "cuda"
+                  ) -> tuple[int, int]:
+    """(chunks, rows per chunk) of the weights launch over *m* rows on
+    *device*: the fewest row chunks (a multiple of 64 rows each) whose
+    tiles fill the SMs' resident CTA slots (``dinox_fused_mlp_bwd_chunks``),
+    asked once per shape and device."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    return _chunks(m, c, hidden, device)
+
+
+def _workspace(m: int, c: int, hidden: int, device) -> dict[str, torch.Tensor]:
+    """The backward's buffers between its launches."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    chunks, rows = weight_chunks(m, c, hidden, device)
+    return {"lnb": torch.empty((m, c), dtype=bf16, device=device),
+            "ab": torch.empty((m, hidden), dtype=bf16, device=device),
+            "dhb": torch.empty((m, hidden), dtype=bf16, device=device),
+            "dln": torch.empty((m, c), dtype=f32, device=device),
+            "part": torch.empty((math.ceil(m / ROW_BLOCK), 3 * c + hidden), dtype=f32, device=device),
+            "wpart": torch.empty((chunks, 2 * c * hidden), dtype=f32, device=device),
+            "chunks": chunks, "rows_per_chunk": rows}
+
+
+def fused_mlp_bwd_norm(x2, gamma, beta, lnb) -> None:
+    """Launch norm: ``lnb`` = bf16(LN(x)), the two-pass statistics."""
     m, c = x2.shape
-    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_rows_bf16", x2.device, x2.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dy2.data_ptr(), dx.data_ptr(), lnb.data_ptr(), ab.data_ptr(), dhb.data_ptr(),
-            part.data_ptr(), m, c, w1.shape[0])
-    fused_mlp_bwd_rows.launches += 1
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_norm_bf16", x2.device,
+            *_ptrs(x2, gamma, beta, lnb), m, c)
+    fused_mlp_bwd_norm.launches += 1
 
 
-def fused_mlp_bwd_weights(dy2, ab, dhb, lnb, wpart, chunks: int) -> None:
-    """Launch the weight-gradient kernel: ``wpart`` ``(chunks, 2*C*hidden)``
-    f32 receives each row chunk's dW2 ``(C, hidden)`` then dW1 ``(hidden, C)``."""
+def fused_mlp_bwd_hidden(lnb, dy2, w1, b1, w2, ab, dhb, part) -> None:
+    """Launch hidden: ``ab``, ``dhb`` and the 64-row blocks' sums of dh into
+    the last ``hidden`` columns of ``part``."""
+    m, c = lnb.shape
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_hidden_bf16", lnb.device,
+            *_ptrs(lnb, dy2, w1, b1, w2, ab, dhb, part), m, c, w1.shape[0])
+    fused_mlp_bwd_hidden.launches += 1
+
+
+def fused_mlp_bwd_dln(dhb, w1, dln) -> None:
+    """Launch dln: ``dln`` (M, C) f32 = dhb W1."""
+    m, c = dln.shape
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_dln_bf16", dhb.device, *_ptrs(dhb, w1, dln),
+            m, c, w1.shape[0])
+    fused_mlp_bwd_dln.launches += 1
+
+
+def fused_mlp_bwd_dx(x2, gamma, dln, dy2, dx, part) -> None:
+    """Launch dx: ``dx`` and the 64-row blocks' sums of dgamma, dbeta and
+    db2 into the first ``3 C`` columns of ``part``."""
+    m, c = x2.shape
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_dx_bf16", x2.device,
+            *_ptrs(x2, gamma, dln, dy2, dx, part), m, c, part.shape[1] - 3 * c)
+    fused_mlp_bwd_dx.launches += 1
+
+
+def fused_mlp_bwd_weights(dy2, ab, dhb, lnb, wpart, rows_per_chunk: int) -> None:
+    """Launch weights: ``wpart`` ``(chunks, 2*C*hidden)`` f32 receives each
+    row chunk's dW2 ``(C, hidden)`` then dW1 ``(hidden, C)``."""
     m, c = dy2.shape
-    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_weights_bf16", dy2.device, dy2.data_ptr(),
-            ab.data_ptr(), dhb.data_ptr(), lnb.data_ptr(), wpart.data_ptr(), m, c, ab.shape[1],
-            chunks)
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_weights_bf16", dy2.device,
+            *_ptrs(dy2, ab, dhb, lnb, wpart), m, c, ab.shape[1], wpart.shape[0], rows_per_chunk)
     fused_mlp_bwd_weights.launches += 1
 
 
-def fused_mlp_bwd_reduce(wpart, part, out, c: int, hidden: int, chunks: int) -> None:
-    """Launch the reduction: ``out`` f32 ``[dW2 | dW1 | dgamma | dbeta | db2 |
-    db1]`` from the chunk partials and the row-block partials, in order."""
-    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_reduce", out.device, wpart.data_ptr(),
-            part.data_ptr(), out.data_ptr(), chunks, part.shape[0], c, hidden)
+def fused_mlp_bwd_reduce(wpart, part, out, c: int, hidden: int) -> None:
+    """Launch reduce: ``out`` f32 ``[dW2 | dW1 | dgamma | dbeta | db2 | db1]``
+    from the chunk partials and the row-block partials, in order."""
+    _launch("fused_mlp_bwd", "dinox_fused_mlp_bwd_reduce", out.device, *_ptrs(wpart, part, out),
+            wpart.shape[0], part.shape[0], c, hidden)
     fused_mlp_bwd_reduce.launches += 1
 
 
-fused_mlp_forward.launches = 0
-fused_mlp_bwd_rows.launches = 0
-fused_mlp_bwd_weights.launches = 0
-fused_mlp_bwd_reduce.launches = 0
+# Each launch's wrapper by part name, in the order of the C entry points'
+# part indices (the occupancy queries); each counts its own launches.
+FWD_LAUNCHES = {"fc1": fused_mlp_fwd_fc1, "fc2": fused_mlp_fwd_fc2}
+BWD_LAUNCHES = {"norm": fused_mlp_bwd_norm, "hidden": fused_mlp_bwd_hidden,
+                "dln": fused_mlp_bwd_dln, "dx": fused_mlp_bwd_dx,
+                "weights": fused_mlp_bwd_weights, "reduce": fused_mlp_bwd_reduce}
+FWD_PARTS, BWD_PARTS = tuple(FWD_LAUNCHES), tuple(BWD_LAUNCHES)
+for _fn in (*FWD_LAUNCHES.values(), *BWD_LAUNCHES.values()):
+    _fn.launches = 0
 
 
 def fused_mlp_backward(x2, gamma, beta, w1, b1, w2, dy2):
     """``(dx, dgamma, dbeta, dw1, db1, dw2, db2)``: the plain backward for CPU
-    tensors, kernel 8's three launches for CUDA (dx bf16, the rest f32)."""
+    tensors, kernel 8's six launches for CUDA (dx bf16, the rest f32)."""
     if x2.device.type == "cpu":
         return fused_mlp_backward_reference(x2, gamma, beta, w1, b1, w2, dy2)
     if x2.device.type != "cuda":
         raise ValueError(f"no fused MLP backward for device {x2.device}")
     m, c, hidden = _check(x2, gamma, beta, w1, b1, w2, {"dy": (dy2, tuple(x2.shape), torch.bfloat16)})
     dev = x2.device
-    bf16, f32 = torch.bfloat16, torch.float32
     dx = torch.empty_like(x2)
     size = 2 * c * hidden + 3 * c + hidden
     if m == 0:
-        out = torch.zeros(size, dtype=f32, device=dev)
+        out = torch.zeros(size, dtype=torch.float32, device=dev)
     else:
-        out = torch.empty(size, dtype=f32, device=dev)  # the reduce writes every element
-        blocks = math.ceil(m / row_block(c))
-        chunks = min(WEIGHT_CHUNKS, blocks)
-        lnb = torch.empty((m, c), dtype=bf16, device=dev)
-        ab = torch.empty((m, hidden), dtype=bf16, device=dev)
-        dhb = torch.empty((m, hidden), dtype=bf16, device=dev)
-        part = torch.empty((blocks, 3 * c + hidden), dtype=f32, device=dev)
-        wpart = torch.empty((chunks, 2 * c * hidden), dtype=f32, device=dev)
-        fused_mlp_bwd_rows(x2, gamma, beta, w1, b1, w2, dy2, dx, lnb, ab, dhb, part)
-        fused_mlp_bwd_weights(dy2, ab, dhb, lnb, wpart, chunks)
-        fused_mlp_bwd_reduce(wpart, part, out, c, hidden, chunks)
+        out = torch.empty(size, dtype=torch.float32, device=dev)  # the reduce writes every element
+        ws = _workspace(m, c, hidden, dev)
+        fused_mlp_bwd_norm(x2, gamma, beta, ws["lnb"])
+        fused_mlp_bwd_hidden(ws["lnb"], dy2, w1, b1, w2, ws["ab"], ws["dhb"], ws["part"])
+        fused_mlp_bwd_dln(ws["dhb"], w1, ws["dln"])
+        fused_mlp_bwd_dx(x2, gamma, ws["dln"], dy2, dx, ws["part"])
+        fused_mlp_bwd_weights(dy2, ws["ab"], ws["dhb"], ws["lnb"], ws["wpart"], ws["rows_per_chunk"])
+        fused_mlp_bwd_reduce(ws["wpart"], ws["part"], out, c, hidden)
     ch = c * hidden
     dw2 = out[:ch].view(c, hidden)
     dw1 = out[ch:2 * ch].view(hidden, c)
     dgamma, dbeta, db2 = out[2 * ch:2 * ch + 3 * c].view(3, c).unbind(0)
     db1 = out[2 * ch + 3 * c:]
     return dx, dgamma, dbeta, dw1, db1, dw2, db2
+
+
+def fused_mlp_occupancy(part: str, c: int = 384, device: torch.device | str = "cuda"
+                        ) -> dict[str, int]:
+    """Registers per thread, dynamic shared memory per CTA (bytes) and
+    resident CTAs per SM of launch *part* (one of :data:`FWD_PARTS` or
+    :data:`BWD_PARTS`; fc1's instantiation depends on the width *c*), from
+    the CUDA occupancy API on *device*."""
+    if part in FWD_PARTS:
+        vals = _build.query("fused_mlp", "dinox_fused_mlp_fwd_occupancy",
+                            (FWD_PARTS.index(part), c), device)
+    else:
+        vals = _build.query("fused_mlp_bwd", "dinox_fused_mlp_bwd_occupancy",
+                            (BWD_PARTS.index(part), c), device)
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm"), vals))
 
 
 class _FusedMlpBlock(torch.autograd.Function):

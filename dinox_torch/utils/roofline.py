@@ -10,8 +10,8 @@ that reach ``pl.pallas_call``) at the shapes of the ViT-S training step
 taken for (2 views, dim 1408, 16 heads), and kernel 4 also at the
 bring-up shape of ``python -m dinox_torch.validate_attention`` (batch 8,
 8 heads, N=1024, head dim 64), and each of the three launches of the
-port's kernel 6 beside kernel 6's own bound, on the named card's published
-peaks (H100 SXM by default).
+port's kernel 6 beside kernel 6's own bound, and each launch of the port's
+kernels 7 and 8, on the named card's published peaks (H100 SXM by default).
 """
 
 from __future__ import annotations
@@ -24,6 +24,10 @@ BF16, F32 = 2, 4
 # (b, n, dim, heads) of the head-major kernel's bring-up gate: q, k, v of
 # (8, 8, 1024, 64).
 VALIDATE_SHAPE = (8, 1024, 512, 8)
+# Row chunks of kernel 8's weights launch at the training shape on a 132-SM
+# H100 (36 tiles, one CTA per SM; ops.fused_mlp.weight_chunks picks them on
+# the card).
+MLP_WEIGHT_CHUNKS = 7
 
 
 def bound_ms(moved_bytes: float, flops: float, peaks: tuple[float, float]) -> tuple[float, str]:
@@ -81,6 +85,47 @@ def fused_mlp_bwd_work(rows: int, dim: int, hidden: int) -> tuple[float, float]:
     return BF16 * rows * dim * 3 + params_in + grads_out, 10.0 * rows * dim * hidden
 
 
+def fused_mlp_fwd_parts_work(rows: int, dim: int, hidden: int) -> dict[str, tuple[float, float]]:
+    """The two launches of the port's kernel 7, each alone: ``fc1`` (x, LN
+    parameters, W1 and b1 in; the bf16 activation a out) and ``fc2`` (a, x,
+    W2 and b2 in; y out). a is written and read back, so the parts' bounds
+    sum to more than :func:`fused_mlp_fwd_work`'s."""
+    fc1 = (BF16 * rows * (dim + hidden) + F32 * (2 * dim + hidden) + BF16 * dim * hidden,
+           2.0 * rows * dim * hidden)
+    fc2 = (BF16 * rows * (hidden + 2 * dim) + F32 * dim + BF16 * dim * hidden,
+           2.0 * rows * dim * hidden)
+    return {"fc1": fc1, "fc2": fc2}
+
+
+def fused_mlp_bwd_parts_work(rows: int, dim: int, hidden: int, chunks: int,
+                             block: int = 64) -> dict[str, tuple[float, float]]:
+    """The six launches of the port's kernel 8, each alone, for *chunks* row
+    chunks of the weights launch and partial sums per *block* rows:
+    ``norm`` (x, gamma, beta in; lnb out), ``hidden`` (lnb, dy, W1, b1, W2
+    in; ab, dhb and the blocks' db1 partials out), ``dln`` (dhb, W1 in; f32
+    dln out), ``dx`` (x, gamma, dln, dy in; dx and the blocks' dgamma, dbeta,
+    db2 partials out), ``weights`` (dy, ab, dhb, lnb in; one f32 partial of
+    dW2 and dW1 per chunk out) and ``reduce`` (the partials in; the f32
+    gradients out). lnb, ab, dhb, dln and the partials go through device
+    memory, so the parts' bounds sum to more than
+    :func:`fused_mlp_bwd_work`'s; their products are its five."""
+    blocks = -(-rows // block)
+    weights = BF16 * 2 * dim * hidden
+    grads = F32 * 2 * dim * hidden
+    vectors = 3 * dim + hidden
+    return {
+        "norm": (BF16 * rows * dim * 2 + F32 * 2 * dim, 0.0),
+        "hidden": (BF16 * rows * (2 * dim + 2 * hidden) + weights + F32 * hidden
+                   + F32 * blocks * hidden, 4.0 * rows * dim * hidden),
+        "dln": (BF16 * rows * hidden + BF16 * dim * hidden + F32 * rows * dim,
+                2.0 * rows * dim * hidden),
+        "dx": (BF16 * rows * dim * 3 + F32 * rows * dim + F32 * dim + F32 * blocks * 3 * dim, 0.0),
+        "weights": (BF16 * rows * (2 * dim + 2 * hidden) + chunks * grads,
+                    4.0 * rows * dim * hidden),
+        "reduce": (chunks * grads + F32 * blocks * vectors + grads + F32 * vectors, 0.0),
+    }
+
+
 def tpu_kernel_bounds(peaks: tuple[float, float], views: int = 192, n: int = 261,
                       dim: int = 384, heads: int = 6, mlp_ratio: float = 4.0,
                       giant: tuple[int, int, int, int] = (2, 261, 1408, 16)) -> list[dict]:
@@ -120,6 +165,14 @@ def main(argv: list[str] | None = None) -> int:
         ms, by = bound_ms(moved, flops, peaks)
         print(f"6  {'  launch ' + part:48s} {str(step):22s} {moved / 1e6:9.1f} MB "
               f"{flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
+    rows, dim, hidden = 192 * 261, 384, 1536
+    mlp_parts = [(7, fused_mlp_fwd_parts_work(rows, dim, hidden)),
+                 (8, fused_mlp_bwd_parts_work(rows, dim, hidden, MLP_WEIGHT_CHUNKS))]
+    for num, parts in mlp_parts:
+        for part, (moved, flops) in parts.items():
+            ms, by = bound_ms(moved, flops, peaks)
+            print(f"{num}  {'  launch ' + part:48s} {str((rows, dim, hidden)):22s} "
+                  f"{moved / 1e6:9.1f} MB {flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
     moved, flops = attention_fwd_work(*VALIDATE_SHAPE)
     ms, by = bound_ms(moved, flops, peaks)
     print(f"4  {'_mha_kernel at the validate shape':48s} {str(VALIDATE_SHAPE):22s} "

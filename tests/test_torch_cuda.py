@@ -214,25 +214,28 @@ def test_fused_attn_block_rejects_what_it_cannot_take(card):
         fused_attn_block_forward(*wide, 25)  # dim 1600 > MAX_DIM
 
 
+def _launch_counts(launches: dict) -> list[int]:
+    return [fn.launches for fn in launches.values()]
+
+
 @pytest.mark.parametrize("shape", MLP_SHAPES)
 def test_fused_mlp_forward_matches_plain(card, shape):
     args, _ = fused_mlp_inputs(*shape, torch.device("cuda"))
-    before = fm.fused_mlp_forward.launches
+    before = _launch_counts(fm.FWD_LAUNCHES)
     got = fm.fused_mlp_forward(*args)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_forward.launches == before + 1
+    assert _launch_counts(fm.FWD_LAUNCHES) == [n + 1 for n in before]
     assert (got.float() - fm.fused_mlp_forward_reference(*args).float()).abs().max().item() < 2e-2
 
 
 @pytest.mark.parametrize("shape", MLP_SHAPES)
 def test_fused_mlp_backward_matches_plain_and_repeats_bit_for_bit(card, shape):
     args, dy = fused_mlp_inputs(*shape, torch.device("cuda"), seed=1)
-    parts = (fm.fused_mlp_bwd_rows, fm.fused_mlp_bwd_weights, fm.fused_mlp_bwd_reduce)
-    before = [p.launches for p in parts]
+    before = _launch_counts(fm.BWD_LAUNCHES)
     got = fm.fused_mlp_backward(*args[:6], dy)
     again = fm.fused_mlp_backward(*args[:6], dy)
     torch.cuda.synchronize()
-    assert [p.launches for p in parts] == [n + 2 for n in before]
+    assert _launch_counts(fm.BWD_LAUNCHES) == [n + 2 for n in before]
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = fm.fused_mlp_backward_reference(*args[:6], dy)
     for g, w in zip(got, want):
@@ -244,15 +247,68 @@ def test_fused_mlp_rejects_what_it_cannot_take(card):
     args, dy = fused_mlp_inputs(40, 384, torch.device("cuda"))
     with pytest.raises(TypeError):
         fm.fused_mlp_forward(args[0].float(), *args[1:])  # float32
+    wide, _ = fused_mlp_inputs(4, 1416, torch.device("cuda"))
     with pytest.raises(ValueError):
-        fm.fused_mlp_forward(args[0][:, :192].contiguous(), *args[1:])  # width not compiled
+        fm.fused_mlp_forward(*wide)  # width 1416 > MAX_DIM
+    with pytest.raises(ValueError):
+        fm.fused_mlp_forward(args[0][:, :380].contiguous(), *args[1:])  # width not a multiple of 8
     with pytest.raises(ValueError):
         fm.fused_mlp_forward(args[0][::2], *args[1:])  # not contiguous
     with pytest.raises(ValueError):
         fm.fused_mlp_backward(*args[:6], dy[:20])  # gradient shape
     with pytest.raises(ValueError):
-        fm.fused_mlp_forward(args[0], args[1], args[2], args[3][:1000].contiguous(), args[4][:1000],
-                             args[5][:, :1000].contiguous(), args[6])  # hidden not a multiple of 128
+        fm.fused_mlp_forward(args[0], args[1], args[2], args[3][:1001].contiguous(), args[4][:1001],
+                             args[5][:, :1001].contiguous(), args[6])  # hidden not a multiple of 8
+
+
+# Kernels 7 and 8 at the ragged edges of their 64- and 128-row blocks (M = 1,
+# 63, 64, 65, 127, 129), the serving rows (8352) and the training rows
+# (50112) at ViT-S width; every width class: ViT-T's 192, ViT-S, -B, 1024,
+# ViT-G's 1408, and 200 (C mod 64 = 8 and hidden 800 mod 64 = 32: a K box
+# wholly past K on fc1's, hidden's and fc2's last stage).
+MLP_EDGE_ROWS = [1, 63, 64, 65, 127, 129, 8352, 50112]
+MLP_WIDTHS = [192, 200, 384, 768, 1024, 1408]
+
+
+def _mlp_two_runs(args, dy):
+    """Kernels 7 and 8 twice on *args*: equal bits, within the gates of the
+    plain versions, one count per launch and call."""
+    before = _launch_counts(fm.FWD_LAUNCHES) + _launch_counts(fm.BWD_LAUNCHES)
+    fwd = [fm.fused_mlp_forward(*args) for _ in range(2)]
+    bwd = [fm.fused_mlp_backward(*args[:6], dy) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = _launch_counts(fm.FWD_LAUNCHES) + _launch_counts(fm.BWD_LAUNCHES)
+    assert after == [n + 2 for n in before]
+    assert torch.equal(*fwd) and all(torch.equal(a, b) for a, b in zip(*bwd))
+    assert (fwd[0].float() - fm.fused_mlp_forward_reference(*args).float()).abs().max().item() < 2e-2
+    for g, w in zip(bwd[0], fm.fused_mlp_backward_reference(*args[:6], dy)):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        assert (g.float() - w.float()).abs().max().item() < BWD_REL * w.float().abs().max().item()
+    return fwd[0], bwd[0]
+
+
+@pytest.mark.parametrize("rows", MLP_EDGE_ROWS)
+def test_fused_mlp_ragged_rows(card, rows):
+    _mlp_two_runs(*fused_mlp_inputs(rows, 384, torch.device("cuda"), seed=6))
+
+
+@pytest.mark.parametrize("c", MLP_WIDTHS)
+def test_fused_mlp_widths(card, c):
+    _mlp_two_runs(*fused_mlp_inputs(65, c, torch.device("cuda"), seed=7))
+
+
+def test_fused_mlp_never_reads_past_the_operands(card):
+    """Rows past M of x, dy and the activations, and rows past the weights,
+    read by the ragged last blocks and tiles, reach no output: NaN bytes just
+    past every bf16 operand change nothing."""
+    args, dy = fused_mlp_inputs(65, 200, torch.device("cuda"), seed=8)
+    want = _mlp_two_runs(args, dy)
+    tailed = [_nan_tailed(a) if a.dtype == torch.bfloat16 else a for a in args]
+    got_f = fm.fused_mlp_forward(*tailed)
+    got_b = fm.fused_mlp_backward(*tailed[:6], _nan_tailed(dy))
+    torch.cuda.synchronize()
+    assert torch.equal(got_f, want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got_b, want[1]))
 
 
 def test_fused_served_forward_matches_unfused(card):
@@ -295,12 +351,11 @@ def test_fused_training_micro_step_matches_unfused(card):
     views = augment_views(torch.from_numpy(px).cuda(), torch.Generator().manual_seed(0), cfgs[0].aug)
     batch = views.reshape(-1, 224, 224, 3)
     sp = torch.rand((4, 3), generator=card, device="cuda") * 2.5 + 0.5
-    counters = (fused_attn_block, fm.fused_mlp_forward, fm.fused_mlp_bwd_rows,
-                fm.fused_mlp_bwd_weights, fm.fused_mlp_bwd_reduce)
+    counters = (fused_attn_block, *fm.FWD_LAUNCHES.values(), *fm.BWD_LAUNCHES.values())
     before = [c.launches for c in counters]
     g_k, _, m_k = micro_loss_and_grads(states[0], states[0].center, batch, sp, cfgs[0])
     d = model.depth
-    assert [c.launches - b for c, b in zip(counters, before)] == [2 * d, 2 * d, d, d, d]
+    assert [c.launches - b for c, b in zip(counters, before)] == [2 * d] * 3 + [d] * 6
     g_p, _, m_p = micro_loss_and_grads(states[1], states[1].center, batch, sp, cfgs[1])
     assert abs(m_k["loss"].item() - m_p["loss"].item()) <= 1e-2 * abs(m_p["loss"].item())
     for a, b in zip(g_k, g_p):
@@ -628,12 +683,15 @@ def test_fused_attn_block_never_reads_past_the_operand(card):
 
 @pytest.mark.parametrize("name, count", [("packed_attention", 3), ("mha_attention", 3),
                                          ("packed_attention_bwd", 6), ("mha_attention_bwd", 6),
-                                         ("fused_attn_block", 7)])
+                                         ("fused_attn_block", 7), ("fused_mlp", 3),
+                                         ("fused_mlp_bwd", 8)])
 def test_forward_kernels_do_not_spill(card, name, count):
     """ptxas -v of the library: every instantiation with 0 bytes of spill
     stores; the forwards at hd 32, 64, 88, the backward pairs' dq and dkv
-    kernels at each of them, and kernel 6's two GEMMs at one and two
-    consumer warpgroups beside kernel 1's core at hd 32, 64, 88."""
+    kernels at each of them, kernel 6's two GEMMs at one and two consumer
+    warpgroups beside kernel 1's core at hd 32, 64, 88, kernel 7's fc1 at
+    one and two consumer warpgroups and its fc2, and kernel 8's six
+    launches (its two row kernels at two widths each)."""
     _build.load(name)
     spills = re.findall(r"(\d+) bytes spill stores", _build.build_log(name))
     assert len(spills) == count and all(int(x) == 0 for x in spills)
