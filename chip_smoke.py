@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke test of dinox_torch's serving and training paths and its
-head-major attention path (one CUDA card).
+"""On-card smoke test of dinox_torch's serving and training paths, its
+head-major attention path and its pretraining CLI (one CUDA card).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -78,6 +78,30 @@ Run from the repository root:  python3 chip_smoke.py
    algorithm's operations and on those the tiles issue) and TB/s beside the
    bound; the pair at the training shape is also held against its plain
    version there.
+15. Drives the pretraining CLI (python -m dinox_torch.pretrain) at full
+   width and depth: ViT-S scale-aware bs96, tanh, attn_impl "pallas", KoLeo
+   0.1, on four batches of the v2 synthetic profiles staged on the card.
+   A straight run of 40 steps in this process (exact launch counts: kernel
+   1 2 x depth and each backward kernel depth per step, every loss finite;
+   the samples/s of each 10 steps (11-20 end before the first save, 21-30
+   hold the step-20 save) beside step 8's bench_train_step slices/s; the
+   caching allocator's cudaMalloc, cudaFree and retries, and the pauses of
+   Python's garbage collector in the run; the checkpoints' bytes, the time the loop was blocked in each save, the
+   part of it spent allocating snapshot buffers, the snapshot copies'
+   device time and the write time); a resume from its step-20 checkpoint, written in the background
+   while steps 21 on updated the state in place (steps 21-40 as the
+   straight run's); the same run as a subprocess, interrupted by SIGINT once step 12
+   is logged (exit 0, a checkpoint at the step it stopped at), then resumed
+   to 40 (lr bit-equal to the straight run at every step, losses after the
+   seam within 1e-3 relative; restore and start-up times); 5 steps with
+   --fused-attn (kernel 6 2 x depth per step, the packed forward 0); and
+   40 steps each over a tree of 48 x 32 512^2 PNGs written with write_png16
+   (1536 slices, three times the loader's in-memory cache, so every epoch
+   decodes), through the host loader (8 workers, device prefetch 2) with
+   the decoded cache off and built (samples/s and data wait share of steps
+   21-40, well past the batches queued before the first step; the PNG
+   decodes of the run and the decoder in use). The kernels line gives each kernel's launches in this phase as
+   pretrain_launches.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -85,21 +109,33 @@ non-zero; without a CUDA card it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import io
 import json
+import re
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dinox_torch import serve, validate_attention
+from dinox_torch import pretrain, serve, validate_attention
 from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
+from dinox_torch.data.hu import HU_SHIFT
+from dinox_torch.data.index import IndexRow, write_index_rows
+from dinox_torch.data.png16 import decoder_in_use, write_png16
+from dinox_torch.data.synthetic import PROFILES_V2, draw_spacing, synth_series_np
 from dinox_torch.models.config import MODEL_CONFIGS
 from dinox_torch.models.vit import Attention, LayerNorm, Mlp, sdpa
 from dinox_torch.ops import _build
@@ -144,6 +180,18 @@ BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 1
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6)]
 TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
+# The pretraining CLI at full width and depth: ViT-S scale-aware bs96, tanh,
+# attn_impl "pallas", the bench's KoLeo weight, on the v2 synthetic profiles
+# staged on the card.
+PRETRAIN_STEPS, PRETRAIN_KILL_AT, PRETRAIN_FUSED_STEPS, LOADER_STEPS = 40, 12, 5, 40
+CLI_ARGS = ["--config", "vit-small", "--scale-aware", "--batch-size", str(TRAIN_BATCH),
+            "--warmup-steps", "10", "--ckpt-every", "20", "--koleo-weight", "0.1", "--log-json",
+            "--no-tensorboard"]
+PRETRAIN_ARGS = CLI_ARGS + ["--synthetic-device-batches", "4", "--synthetic-datasets", "5"]
+RESUME_TOL = 1e-3  # relative, losses after the seam against the straight run
+# The host loader's tree: 48 series x 32 slices at 512^2 from the v2 profiles,
+# three times the 512 slices the loader keeps decoded in memory.
+TREE_SERIES, TREE_SLICES, TREE_SIZE = 48, 32, 512
 VIT_G_SHAPE = (2, 261, 3 * 1408, 16)
 # The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
 # --check); (b, n, dim, heads): the check shape, the serving bucket 32, the
@@ -645,9 +693,9 @@ def report_training(res: dict, cfg, card: str, steps: int, kinds: list = KERNEL_
                                     sorted(by_kind.items(), key=lambda kv: -kv[1][0])), flush=True)
 
 
-def train(card: str) -> dict[str, int]:
+def train(card: str) -> tuple[dict[str, int], float]:
     """The training path at full width: bench_train_step(96), tanh arm, with
-    exact launch counts. Returns the counts of this run."""
+    exact launch counts. Returns the counts of this run and its slices/s."""
     cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     reset_launch_counts()
     res = bench_train_step(TRAIN_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, profile=True)
@@ -662,7 +710,7 @@ def train(card: str) -> dict[str, int]:
     if counts != want:
         fail("the training step did not run every attention through the kernels exactly once")
     report_training(res, cfg, card, TRAIN_STEPS)
-    return counts
+    return counts, res["slices_per_s"]
 
 
 def train_fused(card: str) -> dict[str, int]:
@@ -1036,6 +1084,264 @@ def serve_fused(service, reqs: dict, timed: list, served: dict, depth: int) -> N
         fail("the fused service's embeddings disagree with the unfused service's")
 
 
+def read_metrics(run_dir: Path) -> dict[int, dict]:
+    path = run_dir / "metrics.jsonl"
+    if not path.exists():
+        return {}
+    return {r["step"]: r for r in map(json.loads, path.read_text().splitlines())}
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a list that receives (generation, seconds) for every pass of
+    Python's cyclic garbage collector while the block runs."""
+    pauses: list[tuple[int, float]] = []
+    started = [0.0]
+
+    def note(phase: str, info: dict) -> None:
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - started[0]))
+
+    gc.callbacks.append(note)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(note)
+
+
+def want_counts(**counts: int) -> dict[str, int]:
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(counts)
+    return want
+
+
+class _Tee(io.StringIO):
+    """Standard output that is also kept, to read the CLI's closing lines."""
+
+    def write(self, text: str) -> int:
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def run_cli(argv: list[str], label: str) -> tuple[float, str]:
+    """python -m dinox_torch.pretrain's main in this process; returns its wall
+    seconds and what it printed. Fails the smoke test unless it returns 0."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee()) as out:
+        rc = pretrain.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"pretrain {label} returned {rc}")
+    return time.perf_counter() - t0, out.getvalue()
+
+
+def write_tree(root: Path) -> Path:
+    """A loader tree: TREE_SERIES series of TREE_SLICES 512^2 16-bit PNGs
+    (HU from synth_series_np over the v2 profiles, stored as HU + 32768),
+    written with write_png16, and its index CSV."""
+    def series(s: int) -> list[IndexRow]:
+        rng = np.random.default_rng([SEED, s])
+        prof = PROFILES_V2[s % len(PROFILES_V2)]
+        spacing = draw_spacing(prof, rng)
+        vol = synth_series_np(prof, rng, TREE_SLICES, TREE_SIZE)
+        (root / f"series{s:03d}").mkdir(parents=True)
+        rows = []
+        for z in range(TREE_SLICES):
+            path = root / f"series{s:03d}" / f"{z:04d}.png"
+            write_png16(path, np.clip(np.round(vol[z]) + HU_SHIFT, 0, 65535).astype(np.uint16), filters=z % 5)
+            rows.append(IndexRow(png_path=str(path), series_dir=f"series{s:03d}", slice_index=z,
+                                 spacing_x=spacing[0], spacing_y=spacing[1], spacing_z=spacing[2],
+                                 dataset=prof.name))
+        return rows
+
+    with ThreadPoolExecutor(8) as pool:  # numpy and zlib release the GIL
+        rows = [row for part in pool.map(series, range(TREE_SERIES)) for row in part]
+    write_index_rows(rows, root / "index.csv")
+    return root / "index.csv"
+
+
+def pretrain_path(card: str, bench_rate: float) -> dict[str, int]:
+    """The pretraining path through python -m dinox_torch.pretrain at full
+    width and depth: a straight run with exact launch counts, the same run
+    interrupted by SIGINT and resumed (lr bit-equal, losses after the seam
+    within RESUME_TOL), the --fused-attn path, and the host loader over a
+    PNG tree. Returns the launch counts of the straight run and, under
+    "fused_attn_block", of the fused run."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1. Straight, in process.
+        straight = tmp / "straight"
+        reset_launch_counts()
+        alloc0 = torch.cuda.memory_stats()
+        # Metrics drained every 10 steps: steps 11-20 run before the first
+        # save (at step 20, after that drain), steps 21-30 hold it.
+        with gc_pauses() as pauses:
+            wall, _ = run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir",
+                                               str(straight), "--metric-flush-steps", "10",
+                                               "--metric-flush-secs", "600"], "straight run")
+        counts = launch_counts()
+        alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
+                 for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+        want = want_counts(packed_attention=PRETRAIN_STEPS * 2 * depth,
+                           packed_attention_bwd_dq=PRETRAIN_STEPS * depth,
+                           packed_attention_bwd_dkv=PRETRAIN_STEPS * depth)
+        ref = read_metrics(straight)
+        losses = [ref[s]["loss"] for s in sorted(ref)]
+        print(f"pretrain straight run: {PRETRAIN_STEPS} steps of ViT-S scale-aware bs{TRAIN_BATCH} "
+              f"in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} "
+              f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
+        if sorted(ref) != list(range(1, PRETRAIN_STEPS + 1)) or not np.isfinite(losses).all():
+            fail("the pretraining run did not log a finite loss at every step")
+        if counts != want:
+            fail("the pretraining run did not run every attention through the kernels exactly once")
+        print(f"pretrain straight run, the caching allocator: {alloc} (cudaMalloc, cudaFree, "
+              f"retries after a failed allocation); Python's garbage collector: "
+              f"{len(pauses)} passes, {sum(t for _, t in pauses) * 1e3:.1f} ms in all, generation 2: "
+              f"{[round(t * 1e3, 1) for g, t in pauses if g == 2]} ms; "
+              f"{len(gc.get_objects())} objects tracked after the run", flush=True)
+        for last, what in ((10, "the first steps"), (20, "before the first save"),
+                           (30, "the step-20 save inside"), (40, "no save inside; the step-40 save comes after")):
+            rate = ref[last]["samples_per_s"]
+            print(f"pretrain loop rate, steps {last - 9}-{last} ({what}): {rate:.2f} samples/s (host "
+                  f"clock between metric drains) beside bench_train_step({TRAIN_BATCH}) "
+                  f"{bench_rate:.2f} slices/s: the loop costs {100 * (1 - rate / bench_rate):.1f}% "
+                  f"over the bare step", flush=True)
+        ck = json.loads((straight / "checkpoints.json").read_text())
+        print(f"pretrain checkpoints: {ck['saves']} saves of {ck['bytes']} bytes; the loop blocked "
+              f"{[round(b * 1e3, 1) for b in ck['blocked_each_s']]} ms in save() (each save), of which "
+              f"{ck['alloc_s'] * 1e3:.1f} ms allocating the snapshot buffers on the card (the first "
+              f"save; later saves reuse them); the snapshot copies took "
+              f"{ck['snapshot_device_s'] * 1e3:.3f} ms of device time in all; the writes took "
+              f"{ck['write_s'] * 1e3:.1f} ms in all (device -> host, serialise, rename; in the "
+              f"background); total {(ck['blocked_s'] + ck['write_s']) * 1e3:.1f} ms", flush=True)
+
+        # 2. Resumed from the straight run's step-20 checkpoint, which was
+        # written in the background while steps 21 on updated the state in
+        # place: the snapshot must hold step 20's state.
+        mid = tmp / "from20"
+        (mid / "ckpt").mkdir(parents=True)
+        shutil.copytree(straight / "ckpt" / "20", mid / "ckpt" / "20")
+        shutil.copy(straight / "config.json", mid / "config.json")
+        run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir", str(mid),
+                                 "--resume", str(mid)], "resume from step 20")
+        got = read_metrics(mid)
+        rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(21, PRETRAIN_STEPS + 1)]
+        print(f"pretrain resume from the step-20 checkpoint (saved asynchronously while the loop "
+              f"went on): steps {min(got)}-{max(got)}, lr bit-equal "
+              f"{all(got[s]['lr'] == ref[s]['lr'] for s in got)}, losses max rel diff "
+              f"{max(rel):.3e} (tol {RESUME_TOL})", flush=True)
+        if (sorted(got) != list(range(21, PRETRAIN_STEPS + 1)) or max(rel) > RESUME_TOL
+                or not all(got[s]["lr"] == ref[s]["lr"] for s in got)):
+            fail("the step-20 checkpoint does not hold the state of step 20")
+
+        # 3. The same run interrupted by SIGINT, then resumed.
+        killed = tmp / "killed"
+        cmd = [sys.executable, "-m", "dinox_torch.pretrain", *PRETRAIN_ARGS, "--max-steps",
+               str(PRETRAIN_STEPS), "--run-dir", str(killed)]
+        with open(tmp / "leg1.log", "w") as log:
+            proc = subprocess.Popen(cmd + ["--metric-flush-steps", "1"], cwd=root, stdout=log,
+                                    stderr=subprocess.STDOUT)
+            try:
+                deadline = time.monotonic() + 600
+                while max(read_metrics(killed), default=0) < PRETRAIN_KILL_AT:
+                    if proc.poll() is not None or time.monotonic() > deadline:
+                        fail(f"the first leg ended or stalled before step {PRETRAIN_KILL_AT}:\n"
+                             f"{(tmp / 'leg1.log').read_text()[-3000:]}")
+                    time.sleep(0.05)
+                proc.send_signal(signal.SIGINT)
+                rc = proc.wait(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+        leg1 = read_metrics(killed)
+        seam = max(leg1)
+        saved = sorted(int(d.name) for d in (killed / "ckpt").iterdir() if d.name.isdigit())
+        print(f"pretrain SIGINT at step >= {PRETRAIN_KILL_AT}: exit {rc}, stopped at step {seam}, "
+              f"checkpoints {saved}", flush=True)
+        if rc != 0 or not saved or saved[-1] != seam or seam >= PRETRAIN_STEPS:
+            fail(f"the interrupted run did not exit 0 with a checkpoint at its last step:\n"
+                 f"{(tmp / 'leg1.log').read_text()[-3000:]}")
+        t0 = time.perf_counter()
+        leg2 = subprocess.run(cmd + ["--resume", str(killed)], cwd=root, capture_output=True, text=True,
+                              timeout=900)
+        leg2_s = time.perf_counter() - t0
+        if leg2.returncode != 0:
+            fail(f"the resumed run exited {leg2.returncode}:\n{leg2.stdout[-3000:]}{leg2.stderr[-3000:]}")
+        said = dict(re.findall(r"(restore_s|startup_s)=([0-9.]+)", leg2.stdout))
+        got = read_metrics(killed)
+        if sorted(got) != list(range(1, PRETRAIN_STEPS + 1)):
+            fail(f"the resumed run logged steps {sorted(got)}")
+        lr_equal = all(got[s]["lr"] == ref[s]["lr"] for s in got)
+        rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(seam + 1, PRETRAIN_STEPS + 1)]
+        before = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(1, seam + 1)]
+        print(f"pretrain resume from step {seam}: lr bit-equal to the straight run at every step: "
+              f"{lr_equal}; losses after the seam max rel diff {max(rel):.3e} (tol {RESUME_TOL}), "
+              f"before it {max(before):.3e}; restore {said.get('restore_s', '?')} s, "
+              f"start-up (main to the loop, restore included) {said.get('startup_s', '?')} s, "
+              f"the resumed leg {leg2_s:.1f} s in all for {PRETRAIN_STEPS - seam} steps", flush=True)
+        if not lr_equal or not np.isfinite(rel).all() or max(rel) > RESUME_TOL:
+            fail("the resumed run does not continue the straight run")
+
+        # 4. --fused-attn: kernel 6 for every block's attention half.
+        reset_launch_counts()
+        run_cli(PRETRAIN_ARGS + ["--fused-attn", "--max-steps", str(PRETRAIN_FUSED_STEPS),
+                                 "--run-dir", str(tmp / "fused")], "--fused-attn run")
+        fused_counts = launch_counts()
+        n = PRETRAIN_FUSED_STEPS
+        want = want_counts(fused_attn_block=n * 2 * depth, packed_attention_bwd_dq=n * depth,
+                           packed_attention_bwd_dkv=n * depth)
+        fused = read_metrics(tmp / "fused")
+        print(f"pretrain --fused-attn: {n} steps, losses "
+              f"{[round(fused[s]['loss'], 4) for s in sorted(fused)]}; launches {fused_counts} (want "
+              f"{want}: kernel 6 2 x depth, packed forward 0, dq/dkv depth, per step)", flush=True)
+        if fused_counts != want or not np.isfinite([r["loss"] for r in fused.values()]).all():
+            fail("the --fused-attn pretraining run did not go through kernel 6 exactly as expected")
+        counts["fused_attn_block"] = fused_counts["fused_attn_block"]
+
+        # 5. The host loader over a PNG tree, without and with the decoded
+        # cache. Metrics are drained at steps 20 and 40 only, and no periodic
+        # save falls in the run: steps 21-40 come well after the ~7 batches
+        # the loader and the prefetcher queue before the first step.
+        t0 = time.perf_counter()
+        index_csv = write_tree(tmp / "tree")
+        n_slices = TREE_SERIES * TREE_SLICES
+        print(f"wrote {TREE_SERIES} x {TREE_SLICES} {TREE_SIZE}^2 PNGs with write_png16 in "
+              f"{time.perf_counter() - t0:.1f} s; png decoder: {decoder_in_use()}", flush=True)
+        for cache in ("off", "build"):
+            run_dir = tmp / f"loader_{cache}"
+            reset_launch_counts()
+            wall, out = run_cli(CLI_ARGS + [
+                "--index-csv", str(index_csv), "--num-workers", "8", "--device-prefetch", "2",
+                "--decoded-cache", cache, "--max-steps", str(LOADER_STEPS), "--ckpt-every", "0",
+                "--metric-flush-steps", "20", "--metric-flush-secs", "600", "--run-dir", str(run_dir)],
+                f"loader run (--decoded-cache {cache})")
+            rows = read_metrics(run_dir)
+            decodes = int(re.search(r"png_decodes=(\d+)", out).group(1))
+            print(f"pretrain host loader (--decoded-cache {cache}, 8 workers, device prefetch 2): "
+                  f"{LOADER_STEPS} steps in {wall:.1f} s, losses finite "
+                  f"{bool(np.isfinite([r['loss'] for r in rows.values()]).all())}; steps 1-20: "
+                  f"samples_per_s {rows[20]['samples_per_s']:.2f}, data_wait_frac "
+                  f"{rows[20]['data_wait_frac']:.4f}; steps 21-{LOADER_STEPS}: samples_per_s "
+                  f"{rows[LOADER_STEPS]['samples_per_s']:.2f}, data_wait_frac "
+                  f"{rows[LOADER_STEPS]['data_wait_frac']:.4f}; PNG decodes in the run {decodes} "
+                  f"for {n_slices} slices ({decodes / n_slices:.2f} per slice); packed_attention "
+                  f"launches {launch_counts()['packed_attention']} (want {LOADER_STEPS * 2 * depth})",
+                  flush=True)
+            if (sorted(rows) != list(range(1, LOADER_STEPS + 1))
+                    or not np.isfinite([r["loss"] for r in rows.values()]).all()
+                    or "samples_per_s" not in rows[20] or "samples_per_s" not in rows[LOADER_STEPS]
+                    or launch_counts()["packed_attention"] != LOADER_STEPS * 2 * depth):
+                fail(f"the loader-fed pretraining run (--decoded-cache {cache}) failed")
+            if cache == "off" and decodes <= n_slices:
+                fail("the loader decoded no slice twice: the timed window read from its memory cache")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1174,7 +1480,7 @@ def main() -> int:
 
     vit_s = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     check_step((vit_s, vit_s.replace(attn_impl="xla")), "kernels vs plain attention")
-    train_counts = train(card)
+    train_counts, bench_rate = train(card)
     bwd = time_backward(peaks)
     time_backward(peaks, VIT_G_SHAPE)  # TPU kernel 3's shape
 
@@ -1185,6 +1491,9 @@ def main() -> int:
     fused_counts = train_fused(card)
     fused = time_fused(peaks)
     mha = time_mha(peaks)
+
+    # -- the pretraining CLI (module 8) ---------------------------------------
+    pretrain_counts = pretrain_path(card, bench_rate)
 
     kernels = [{
         "name": "packed_attention",
@@ -1203,6 +1512,7 @@ def main() -> int:
         "training": {"shape": fwd_train["shape"], "ms": fwd_train["ms"],
                      "plain_ms": fwd_train["plain_ms"], "bound_ms": fwd_train["bound"][0],
                      "library_ms": fwd_train["library_ms"], "device_ms": fwd_train["device_ms"]},
+        "pretrain_launches": pretrain_counts["packed_attention"],
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -1223,6 +1533,7 @@ def main() -> int:
             "library_ms": bwd[part]["library_ms"],
             "device_ms": bwd[part]["device_ms"],
             "library_device_ms": bwd[part]["library_device_ms"],
+            "pretrain_launches": pretrain_counts[name],
         })
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
@@ -1255,6 +1566,7 @@ def main() -> int:
                                 "bound_ms": serving["bound"][0], "unfused_ms": serving["unfused_ms"],
                                 "device_ms": serving["device_ms"], "parts": serving["parts"]}
             entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
+            entry["pretrain_launches"] = pretrain_counts["fused_attn_block"]  # the --fused-attn run
         if name.startswith("fused_mlp"):  # two or six launches: parts holds each one's device time
             entry["device_ms"] = t["device_ms"]
             entry["parts"] = {p: {"launches": fused_counts[f"{name}_{p}"], **v}

@@ -83,14 +83,17 @@ class TrainConfig:
 
 
 def reject_unported(cfg: TrainConfig) -> None:
-    """Raise for the options the port does not have yet."""
-    for field, unported in (("mu_dtype", cfg.mu_dtype != "float32"),
-                            ("nu_dtype", cfg.nu_dtype != "float32"),
-                            ("factored_nu", cfg.factored_nu),
-                            ("pipeline_parallel", cfg.pipeline_parallel > 1),
-                            ("loss_type", cfg.loss_type == "mae")):
+    """Raise for the options the port does not have yet, naming the module
+    of the port's plan that brings each."""
+    for field, unported, module in (
+            ("mu_dtype", cfg.mu_dtype != "float32", 11),
+            ("nu_dtype", cfg.nu_dtype != "float32", 11),
+            ("factored_nu", cfg.factored_nu, 11),
+            ("loss_type", cfg.loss_type == "mae", 11),
+            ("pipeline_parallel", cfg.pipeline_parallel > 1, 13)):
         if unported:
-            raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch yet")
+            raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch "
+                                      f"yet: module {module}")
     if cfg.loss_type not in ("dino", "simclr"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
 

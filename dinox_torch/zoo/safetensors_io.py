@@ -51,22 +51,22 @@ def load_file(path: str | Path) -> dict[str, np.ndarray]:
 
 def save_file(tensors: Mapping[str, np.ndarray], path: str | Path) -> None:
     header: dict[str, dict] = {}
-    chunks: list[bytes] = []
+    arrays: list[np.ndarray] = []
     offset = 0
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
+        arr = np.asarray(tensors[name])
         dtype = arr.dtype.newbyteorder("<")
         if dtype not in _NAMES:
             raise TypeError(f"{name}: dtype {arr.dtype} has no safetensors name here")
-        raw = arr.astype(dtype, copy=False).tobytes()
-        header[name] = {"dtype": _NAMES[dtype], "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        chunks.append(raw)
-        offset += len(raw)
+        arr = np.ascontiguousarray(arr.astype(dtype, copy=False).reshape(-1))  # 0-d keeps its shape below
+        header[name] = {"dtype": _NAMES[dtype], "shape": list(np.shape(tensors[name])),
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        arrays.append(arr)
+        offset += arr.nbytes
     blob = json.dumps(header, separators=(",", ":")).encode()
     blob += b" " * (-len(blob) % 8)  # the data buffer starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for raw in chunks:
-            f.write(raw)
+        for arr in arrays:  # written from the arrays' own memory, no copy to bytes
+            f.write(arr.view(np.uint8))

@@ -7,7 +7,9 @@ head-major pair (kernels 4 and 5) with the sdpa dispatch, the forward
 tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh), the backward
 tile core of kernels 2/3 and 5 (csrc/attention_bwd_sm90.cuh) and kernel 6's
 three launches (the GEMM core csrc/gemm_sm90.cuh around kernel 1's core) at
-the ragged edges of their tiling, with equal bits on two runs and no spills.
+the ragged edges of their tiling, with equal bits on two runs and no spills;
+and the pretraining loop's device side: the prefetcher's staged batches and
+the async checkpoint's snapshot under in-place updates.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -695,3 +697,51 @@ def test_forward_kernels_do_not_spill(card, name, count):
     _build.load(name)
     spills = re.findall(r"(\d+) bytes spill stores", _build.build_log(name))
     assert len(spills) == count and all(int(x) == 0 for x in spills)
+
+
+# -- the pretraining loop's device side: the prefetcher and async checkpoints ---
+
+
+def test_device_prefetcher_stages_batches_on_the_card(card):
+    """Each batch comes out on the card equal to the host batch, after the
+    consumer's stream waited for its copy on the side stream."""
+    from dinox_torch.data.pipeline import Batch
+    from dinox_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [Batch(pixels=rng.integers(0, 65535, (1, 16, 256, 256, 3)).astype(np.uint16),
+                  spacing=rng.uniform(0.5, 2, (1, 16, 3)).astype(np.float32), indices=np.arange(16))
+            for _ in range(6)]
+    busy = torch.randn((4096, 4096), device="cuda")
+    for got, want in zip(DevicePrefetcher(host, device="cuda", depth=2), host):
+        busy @ busy  # keep the consumer's stream busy while later copies run
+        assert got.pixels.is_cuda and got.pixels.dtype == torch.uint16
+        np.testing.assert_array_equal(got.pixels.cpu().numpy(), want.pixels)
+        np.testing.assert_array_equal(got.spacing.cpu().numpy(), want.spacing)
+
+
+def test_async_checkpoint_holds_the_state_of_the_save_on_the_card(card, tmp_path):
+    """The state on the card is updated in place right after save()
+    returns; the checkpoint holds the values of the moment of the save."""
+    from dinox_torch.models.config import ModelConfig
+    from dinox_torch.train.checkpoint import STATE_FILE, CheckpointManager, state_tensors
+    from dinox_torch.zoo.safetensors_io import load_file
+
+    cfg = TrainConfig(model=ModelConfig(name="t", img_size=32, patch=16, dim=64, depth=2, heads=2,
+                                        out_dim=128, attn_impl="xla"), img_size=32, batch_size=4)
+    state = create_train_state(cfg, device="cuda")
+    mgr = CheckpointManager(tmp_path / "run")
+    for step in (1, 2):  # the second save reuses the first one's snapshot buffers
+        want = {k: v.cpu().clone() for k, v in state_tensors(state).items()}
+        mgr.save(step, state)
+        with torch.no_grad():
+            for _ in range(20):
+                for p in list(state.student.parameters()) + list(state.teacher.parameters()):
+                    p.mul_(1.5).add_(1.0)
+        mgr.wait()
+        got = load_file(tmp_path / "run" / "ckpt" / str(step) / STATE_FILE)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v.numpy(), err_msg=f"step {step}: {k}")
+    mgr.close()
+    assert len(mgr.stats["blocked_each_s"]) == 2

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of dinox_torch (the training step, the
+"""The port stands alone: no module of dinox_torch (the training step and
+loop, the data layer, the checkpoints, the pretraining CLI, the
 augmentation, the bench and the FLOP counts included), and not
 chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
 the serving or training path imports PIL, safetensors or huggingface_hub
@@ -39,4 +40,10 @@ def test_scan_sees_the_package():
             "dinox_torch/train/losses.py", "dinox_torch/train/schedule.py",
             "dinox_torch/ops/augment.py", "dinox_torch/bench.py",
             "dinox_torch/utils/flops.py", "dinox_torch/ops/fused_attn_block.py",
-            "dinox_torch/ops/fused_mlp.py", "dinox_torch/validate_attention.py"} <= names
+            "dinox_torch/ops/fused_mlp.py", "dinox_torch/validate_attention.py",
+            "dinox_torch/pretrain.py", "dinox_torch/data/index.py", "dinox_torch/data/sampler.py",
+            "dinox_torch/data/png16.py", "dinox_torch/data/pipeline.py",
+            "dinox_torch/data/slice_cache.py", "dinox_torch/data/synthetic.py",
+            "dinox_torch/data/prefetch.py", "dinox_torch/train/anomaly.py",
+            "dinox_torch/train/checkpoint.py", "dinox_torch/train/trainer.py",
+            "dinox_torch/utils/logging.py", "dinox_torch/zoo/lineage.py"} <= names
