@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """On-card smoke test of dinox_torch's serving and training paths, its
-head-major attention path and its pretraining CLI (one CUDA card).
+head-major attention path, its pretraining CLI and its evaluation,
+inference-bench and LoRA fine-tuning CLIs (one CUDA card).
 
 Run from the repository root:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel under dinox_torch/ops/csrc with nvcc.
 3. Holds the packed attention forward kernel against its plain PyTorch
-   version on the card at the shapes the serving path, the training path
-   and the JAX package's kernel check use, and both forward kernels of the tile core
+   version on the card at the shapes the serving path, the training path,
+   the inference bench (bs 64-512) and the JAX package's kernel check use,
+   and both forward kernels of the tile core
    attention_fwd_sm90.cuh (kernels 1 and 4) at the ragged edges of its
    tiling (N 1 to 1500, hd 32/64/88), each twice with equal bits.
 4. Makes a full-width ViT-S scale-aware backbone (bf16, seeded random
@@ -19,7 +21,8 @@ Run from the repository root:  python3 chip_smoke.py
    >= 0.999 against the same weights with plain attention) and that every
    forward went through the kernel (launches == depth x forwards).
 6. Holds the backward kernel pair (dq, dkv) against the plain backward at
-   six shapes, the training shape and the ViT-G one included, then both
+   seven shapes, the training shape, the LoRA fine-tuning step's (bs 32)
+   and the ViT-G one included, then both
    backward pairs of the tile core attention_bwd_sm90.cuh (kernels 2/3 and
    5) at the ragged edges of its tiling (N 1 to 1500, hd 32/64/88): each
    twice with equal bits, kernel 5 bit-equal to kernel 2.
@@ -31,8 +34,8 @@ Run from the repository root:  python3 chip_smoke.py
    per step (forward 2 x depth, each backward kernel depth).
 9. (Run right after 3.) Holds the fused attention half-block kernel (TPU
    kernel 6: LN + QKV and proj + residual on the GEMM core gemm_sm90.cuh
-   around kernel 1's attention core) against its plain version at five
-   shapes and at the ragged edges of its row blocks and widths (B*N 1, 63,
+   around kernel 1's attention core) against its plain version at nine
+   shapes (the inference bench's bs 64-512 among them) and at the ragged edges of its row blocks and widths (B*N 1, 63,
    64, 65; dim 96 and 1408): y, qkv and attn within 0.05, twice with equal
    bits, attn bit-equal to kernel 1 on the kernel's own qkv; the fused MLP
    forward's two launches (kernel 7: fc1 and fc2 on gemm_sm90.cuh) within
@@ -102,6 +105,32 @@ Run from the repository root:  python3 chip_smoke.py
    21-40, well past the batches queued before the first step; the PNG
    decodes of the run and the decoder in use). The kernels line gives each kernel's launches in this phase as
    pretrain_launches.
+16. Evaluates the straight run of 15 over its PNG tree (module 9):
+   python -m dinox_torch.evaluate_panorgan's main through run_export and
+   the safetensors reader (every metric a number; kernel 1 launches ==
+   depth x forwards exactly), embed_rows against the same weights with
+   plain attention (CLS cosine >= 0.999), embedded slices/s with and
+   without PNG decoding, view_retrieval_eval (exit 0 or 2, its gate) and
+   check_checkpoint once each.
+17. Runs python -m dinox_torch.bench_inference at full ViT-S width: the
+   throughput mode at bs 64/128/256/512 unfused (kernel 1 only) and
+   --fused-attn (kernel 6 only), each batch size over 12800 images, both
+   kinds twice in turn; then --slo at concurrency 1/4/16 both ways, 200
+   requests or more a concurrency; exact launch counts. Kernels 1 and 6
+   are checked at every batch size of the bench (steps 3 and 8), and
+   kernel 1 is timed against SDPA and its bound at the bench's largest
+   shape (512, 261, 1152, 6).
+18. Fine-tunes the straight run with LoRA (module 10): finetune_lora's
+   main at bs 32, rank 8, 2 epochs over two profiles of the tree, with
+   --unfreeze-blocks 0 and 1 (per training step kernel 1, dq and dkv
+   depth each, kernel 1 depth per validation forward, kernels 4-8 zero;
+   finite losses; the adapter files), the adapter loaded and merged (CLS
+   cosine >= 0.999 against the unmerged model), one LoRA loss and backward
+   through the kernels against plain attention (loss within 1e-2
+   relative, adapter gradients at cosine >= 0.99), and the step's ms and
+   samples/s beside bench_train_step(96). The kernels line gives kernels
+   1, 2 and 6 eval_launches, bench_inference_launches and
+   finetune_launches, and kernel 1 its inference_bench timing.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -110,6 +139,7 @@ non-zero; without a CUDA card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import gc
 import io
 import json
@@ -130,20 +160,39 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dinox_torch import pretrain, serve, validate_attention
+from dinox_torch import (
+    bench_inference,
+    check_checkpoint,
+    evaluate_panorgan,
+    finetune_lora,
+    pretrain,
+    serve,
+    validate_attention,
+    view_retrieval_eval,
+)
 from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
 from dinox_torch.data.hu import HU_SHIFT
-from dinox_torch.data.index import IndexRow, write_index_rows
+from dinox_torch.data.index import IndexRow, load_index_rows, write_index_rows
 from dinox_torch.data.png16 import decoder_in_use, write_png16
 from dinox_torch.data.synthetic import PROFILES_V2, draw_spacing, synth_series_np
+from dinox_torch.evaluate_panorgan import load_any_model
+from dinox_torch.evaluation.embedder import _load_batches, embed_rows
 from dinox_torch.models.config import MODEL_CONFIGS
-from dinox_torch.models.vit import Attention, LayerNorm, Mlp, sdpa
+from dinox_torch.models.vit import Attention, LayerNorm, Mlp, PatchViT, sdpa
 from dinox_torch.ops import _build
 from dinox_torch.ops import flash_attention as fa
 from dinox_torch.ops import fused_attn_block as fab
 from dinox_torch.ops import fused_mlp as fm
-from dinox_torch.ops.augment import augment_views
+from dinox_torch.ops.augment import augment_views, eval_transform
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.train.finetune import (
+    FinetuneConfig,
+    FinetuneState,
+    build_finetune_step,
+    finetune_loss,
+    init_head,
+    make_finetune_optimizer,
+)
 from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import micro_loss_and_grads
 from dinox_torch.utils.flops import card_peaks, mfu
@@ -160,24 +209,29 @@ from dinox_torch.utils.roofline import (
 )
 from dinox_torch.zoo.encode import _preprocess
 from dinox_torch.zoo.hub import LoadedModel, export_hub_checkpoint
+from dinox_torch.zoo.peft import apply_lora, load_adapter, merge_adapter
 
 SEED = 0
 BUCKETS = [1, 8, 32]
 TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py --check)
 # (b, n, 3*dim, heads): the kernel-check shapes (ViT-S, ViT-G hd 88), the
-# serving bucket-32 shape, the MAE decoder's hd 32, and the ViT-S training
-# shape (2 x 96 views) that the unfused training step gives it.
+# serving bucket-32 shape, the MAE decoder's hd 32, the ViT-S training
+# shape (2 x 96 views) that the unfused training step gives it, the
+# inference bench's largest batch (3072 (batch, head) pairs) and its other
+# three batch sizes (the evaluation's bs 64 among them).
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
-                (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6)]
+                (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6), (512, 261, 3 * 384, 6),
+                (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6)]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
 BWD_TOL, BWD_REL = 0.25, 2e-2
 # (b, n, 3*dim, heads): the check shape, the ViT-S training shape (2 x 96
-# views), ViT-G (hd 88, TPU kernel 3's shape), hd 32, a short ragged N and
-# an N past the TPU kernel's 1024.
+# views), ViT-G (hd 88, TPU kernel 3's shape), hd 32, a short ragged N, an
+# N past the TPU kernel's 1024 and the LoRA fine-tuning step's bs 32.
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
-              (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6)]
+              (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6),
+              (32, 261, 3 * 384, 6)]
 TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
 # The pretraining CLI at full width and depth: ViT-S scale-aware bs96, tanh,
@@ -193,12 +247,24 @@ RESUME_TOL = 1e-3  # relative, losses after the seam against the straight run
 # three times the 512 slices the loader keeps decoded in memory.
 TREE_SERIES, TREE_SLICES, TREE_SIZE = 48, 32, 512
 VIT_G_SHAPE = (2, 261, 3 * 1408, 16)
+# The inference bench (python -m dinox_torch.bench_inference): each batch
+# size timed over INFER_IMAGES images (INFER_IMAGES / bs steps, 25 at bs 512,
+# about 1-2.5 s a window on the card), unfused and fused twice in turn; each
+# --slo concurrency in a run of its own with SLO_SAMPLES requests in all, so
+# that p99 rests on 200 latencies; kernel 1's shape at bs 512.
+INFER_BATCHES, INFER_IMAGES, INFER_REPEATS = [64, 128, 256, 512], 12800, 2
+SLO_CONCURRENCY, SLO_SAMPLES = [1, 4, 16], 200
+INFER_SHAPE = CHECK_SHAPES[5]
+# LoRA fine-tuning: bs 32, 3 steps an epoch, 2 validation batches.
+FT_BATCH, FT_TRAIN, FT_VAL = 32, 96, 64
 # The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
 # --check); (b, n, dim, heads): the check shape, the serving bucket 32, the
-# training shape, ViT-G (hd 88) and hd 32.
+# training shape, ViT-G (hd 88), hd 32 and the inference bench's batch sizes
+# (bs 512: 133,632 rows).
 FUSED_TOL = 0.05
 FUSED_ATTN_SHAPES = [(8, 261, 384, 6), (32, 261, 384, 6), (192, 261, 384, 6),
-                     (2, 261, 1408, 16), (4, 261, 512, 16)]
+                     (2, 261, 1408, 16), (4, 261, 512, 16),
+                     (64, 261, 384, 6), (128, 261, 384, 6), (256, 261, 384, 6), (512, 261, 384, 6)]
 FUSED_SERVING_SHAPE, FUSED_TRAINING_SHAPE = FUSED_ATTN_SHAPES[1], FUSED_ATTN_SHAPES[2]
 # Kernel 6's ragged edges, (b, n, dim, heads): B*N = 1, 63, 64, 65 (the edges
 # of a 64-row warpgroup and of a 128-row GEMM block), dim 96 (a last 32-deep
@@ -1125,16 +1191,18 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def run_cli(argv: list[str], label: str) -> tuple[float, str]:
-    """python -m dinox_torch.pretrain's main in this process; returns its wall
-    seconds and what it printed. Fails the smoke test unless it returns 0."""
+def run_cli(argv: list[str], label: str, main=pretrain.main, codes: tuple[int, ...] = (0,)
+            ) -> tuple[float, str]:
+    """A CLI's main (python -m dinox_torch.pretrain's by default) in this
+    process; returns its wall seconds and what it printed. Fails the smoke
+    test unless it returns one of *codes*."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(_Tee()) as out:
-        rc = pretrain.main(argv)
+        rc = main(argv)
     torch.cuda.synchronize()
-    if rc != 0:
-        fail(f"pretrain {label} returned {rc}")
+    if rc not in codes:
+        fail(f"{main.__module__} {label} returned {rc}")
     return time.perf_counter() - t0, out.getvalue()
 
 
@@ -1163,183 +1231,496 @@ def write_tree(root: Path) -> Path:
     return root / "index.csv"
 
 
-def pretrain_path(card: str, bench_rate: float) -> dict[str, int]:
+def pretrain_path(card: str, bench_rate: float, tmp: Path) -> dict[str, int]:
     """The pretraining path through python -m dinox_torch.pretrain at full
     width and depth: a straight run with exact launch counts, the same run
     interrupted by SIGINT and resumed (lr bit-equal, losses after the seam
     within RESUME_TOL), the --fused-attn path, and the host loader over a
-    PNG tree. Returns the launch counts of the straight run and, under
-    "fused_attn_block", of the fused run."""
+    PNG tree. Leaves the straight run in tmp/straight and the tree in
+    tmp/tree for the phases after it. Returns the launch counts of the
+    straight run and, under "fused_attn_block", of the fused run."""
     depth = MODEL_CONFIGS["vit-small"].depth
     root = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        # 1. Straight, in process.
-        straight = tmp / "straight"
+    # 1. Straight, in process.
+    straight = tmp / "straight"
+    reset_launch_counts()
+    alloc0 = torch.cuda.memory_stats()
+    # Metrics drained every 10 steps: steps 11-20 run before the first
+    # save (at step 20, after that drain), steps 21-30 hold it.
+    with gc_pauses() as pauses:
+        wall, _ = run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir",
+                                           str(straight), "--metric-flush-steps", "10",
+                                           "--metric-flush-secs", "600"], "straight run")
+    counts = launch_counts()
+    alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
+             for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+    want = want_counts(packed_attention=PRETRAIN_STEPS * 2 * depth,
+                       packed_attention_bwd_dq=PRETRAIN_STEPS * depth,
+                       packed_attention_bwd_dkv=PRETRAIN_STEPS * depth)
+    ref = read_metrics(straight)
+    losses = [ref[s]["loss"] for s in sorted(ref)]
+    print(f"pretrain straight run: {PRETRAIN_STEPS} steps of ViT-S scale-aware bs{TRAIN_BATCH} "
+          f"in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} "
+          f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
+    if sorted(ref) != list(range(1, PRETRAIN_STEPS + 1)) or not np.isfinite(losses).all():
+        fail("the pretraining run did not log a finite loss at every step")
+    if counts != want:
+        fail("the pretraining run did not run every attention through the kernels exactly once")
+    print(f"pretrain straight run, the caching allocator: {alloc} (cudaMalloc, cudaFree, "
+          f"retries after a failed allocation); Python's garbage collector: "
+          f"{len(pauses)} passes, {sum(t for _, t in pauses) * 1e3:.1f} ms in all, generation 2: "
+          f"{[round(t * 1e3, 1) for g, t in pauses if g == 2]} ms; "
+          f"{len(gc.get_objects())} objects tracked after the run", flush=True)
+    for last, what in ((10, "the first steps"), (20, "before the first save"),
+                       (30, "the step-20 save inside"), (40, "no save inside; the step-40 save comes after")):
+        rate = ref[last]["samples_per_s"]
+        print(f"pretrain loop rate, steps {last - 9}-{last} ({what}): {rate:.2f} samples/s (host "
+              f"clock between metric drains) beside bench_train_step({TRAIN_BATCH}) "
+              f"{bench_rate:.2f} slices/s: the loop costs {100 * (1 - rate / bench_rate):.1f}% "
+              f"over the bare step", flush=True)
+    ck = json.loads((straight / "checkpoints.json").read_text())
+    print(f"pretrain checkpoints: {ck['saves']} saves of {ck['bytes']} bytes; the loop blocked "
+          f"{[round(b * 1e3, 1) for b in ck['blocked_each_s']]} ms in save() (each save), of which "
+          f"{ck['alloc_s'] * 1e3:.1f} ms allocating the snapshot buffers on the card (the first "
+          f"save; later saves reuse them); the snapshot copies took "
+          f"{ck['snapshot_device_s'] * 1e3:.3f} ms of device time in all; the writes took "
+          f"{ck['write_s'] * 1e3:.1f} ms in all (device -> host, serialise, rename; in the "
+          f"background); total {(ck['blocked_s'] + ck['write_s']) * 1e3:.1f} ms", flush=True)
+
+    # 2. Resumed from the straight run's step-20 checkpoint, which was
+    # written in the background while steps 21 on updated the state in
+    # place: the snapshot must hold step 20's state.
+    mid = tmp / "from20"
+    (mid / "ckpt").mkdir(parents=True)
+    shutil.copytree(straight / "ckpt" / "20", mid / "ckpt" / "20")
+    shutil.copy(straight / "config.json", mid / "config.json")
+    run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir", str(mid),
+                             "--resume", str(mid)], "resume from step 20")
+    got = read_metrics(mid)
+    rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(21, PRETRAIN_STEPS + 1)]
+    print(f"pretrain resume from the step-20 checkpoint (saved asynchronously while the loop "
+          f"went on): steps {min(got)}-{max(got)}, lr bit-equal "
+          f"{all(got[s]['lr'] == ref[s]['lr'] for s in got)}, losses max rel diff "
+          f"{max(rel):.3e} (tol {RESUME_TOL})", flush=True)
+    if (sorted(got) != list(range(21, PRETRAIN_STEPS + 1)) or max(rel) > RESUME_TOL
+            or not all(got[s]["lr"] == ref[s]["lr"] for s in got)):
+        fail("the step-20 checkpoint does not hold the state of step 20")
+
+    # 3. The same run interrupted by SIGINT, then resumed.
+    killed = tmp / "killed"
+    cmd = [sys.executable, "-m", "dinox_torch.pretrain", *PRETRAIN_ARGS, "--max-steps",
+           str(PRETRAIN_STEPS), "--run-dir", str(killed)]
+    with open(tmp / "leg1.log", "w") as log:
+        proc = subprocess.Popen(cmd + ["--metric-flush-steps", "1"], cwd=root, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            deadline = time.monotonic() + 600
+            while max(read_metrics(killed), default=0) < PRETRAIN_KILL_AT:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail(f"the first leg ended or stalled before step {PRETRAIN_KILL_AT}:\n"
+                         f"{(tmp / 'leg1.log').read_text()[-3000:]}")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    leg1 = read_metrics(killed)
+    seam = max(leg1)
+    saved = sorted(int(d.name) for d in (killed / "ckpt").iterdir() if d.name.isdigit())
+    print(f"pretrain SIGINT at step >= {PRETRAIN_KILL_AT}: exit {rc}, stopped at step {seam}, "
+          f"checkpoints {saved}", flush=True)
+    if rc != 0 or not saved or saved[-1] != seam or seam >= PRETRAIN_STEPS:
+        fail(f"the interrupted run did not exit 0 with a checkpoint at its last step:\n"
+             f"{(tmp / 'leg1.log').read_text()[-3000:]}")
+    t0 = time.perf_counter()
+    leg2 = subprocess.run(cmd + ["--resume", str(killed)], cwd=root, capture_output=True, text=True,
+                          timeout=900)
+    leg2_s = time.perf_counter() - t0
+    if leg2.returncode != 0:
+        fail(f"the resumed run exited {leg2.returncode}:\n{leg2.stdout[-3000:]}{leg2.stderr[-3000:]}")
+    said = dict(re.findall(r"(restore_s|startup_s)=([0-9.]+)", leg2.stdout))
+    got = read_metrics(killed)
+    if sorted(got) != list(range(1, PRETRAIN_STEPS + 1)):
+        fail(f"the resumed run logged steps {sorted(got)}")
+    lr_equal = all(got[s]["lr"] == ref[s]["lr"] for s in got)
+    rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(seam + 1, PRETRAIN_STEPS + 1)]
+    before = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(1, seam + 1)]
+    print(f"pretrain resume from step {seam}: lr bit-equal to the straight run at every step: "
+          f"{lr_equal}; losses after the seam max rel diff {max(rel):.3e} (tol {RESUME_TOL}), "
+          f"before it {max(before):.3e}; restore {said.get('restore_s', '?')} s, "
+          f"start-up (main to the loop, restore included) {said.get('startup_s', '?')} s, "
+          f"the resumed leg {leg2_s:.1f} s in all for {PRETRAIN_STEPS - seam} steps", flush=True)
+    if not lr_equal or not np.isfinite(rel).all() or max(rel) > RESUME_TOL:
+        fail("the resumed run does not continue the straight run")
+
+    # 4. --fused-attn: kernel 6 for every block's attention half.
+    reset_launch_counts()
+    run_cli(PRETRAIN_ARGS + ["--fused-attn", "--max-steps", str(PRETRAIN_FUSED_STEPS),
+                             "--run-dir", str(tmp / "fused")], "--fused-attn run")
+    fused_counts = launch_counts()
+    n = PRETRAIN_FUSED_STEPS
+    want = want_counts(fused_attn_block=n * 2 * depth, packed_attention_bwd_dq=n * depth,
+                       packed_attention_bwd_dkv=n * depth)
+    fused = read_metrics(tmp / "fused")
+    print(f"pretrain --fused-attn: {n} steps, losses "
+          f"{[round(fused[s]['loss'], 4) for s in sorted(fused)]}; launches {fused_counts} (want "
+          f"{want}: kernel 6 2 x depth, packed forward 0, dq/dkv depth, per step)", flush=True)
+    if fused_counts != want or not np.isfinite([r["loss"] for r in fused.values()]).all():
+        fail("the --fused-attn pretraining run did not go through kernel 6 exactly as expected")
+    counts["fused_attn_block"] = fused_counts["fused_attn_block"]
+
+    # 5. The host loader over a PNG tree, without and with the decoded
+    # cache. Metrics are drained at steps 20 and 40 only, and no periodic
+    # save falls in the run: steps 21-40 come well after the ~7 batches
+    # the loader and the prefetcher queue before the first step.
+    t0 = time.perf_counter()
+    index_csv = write_tree(tmp / "tree")
+    n_slices = TREE_SERIES * TREE_SLICES
+    print(f"wrote {TREE_SERIES} x {TREE_SLICES} {TREE_SIZE}^2 PNGs with write_png16 in "
+          f"{time.perf_counter() - t0:.1f} s; png decoder: {decoder_in_use()}", flush=True)
+    for cache in ("off", "build"):
+        run_dir = tmp / f"loader_{cache}"
         reset_launch_counts()
-        alloc0 = torch.cuda.memory_stats()
-        # Metrics drained every 10 steps: steps 11-20 run before the first
-        # save (at step 20, after that drain), steps 21-30 hold it.
-        with gc_pauses() as pauses:
-            wall, _ = run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir",
-                                               str(straight), "--metric-flush-steps", "10",
-                                               "--metric-flush-secs", "600"], "straight run")
-        counts = launch_counts()
-        alloc = {k: torch.cuda.memory_stats().get(k, 0) - alloc0.get(k, 0)
-                 for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
-        want = want_counts(packed_attention=PRETRAIN_STEPS * 2 * depth,
-                           packed_attention_bwd_dq=PRETRAIN_STEPS * depth,
-                           packed_attention_bwd_dkv=PRETRAIN_STEPS * depth)
-        ref = read_metrics(straight)
-        losses = [ref[s]["loss"] for s in sorted(ref)]
-        print(f"pretrain straight run: {PRETRAIN_STEPS} steps of ViT-S scale-aware bs{TRAIN_BATCH} "
-              f"in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} "
-              f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
-        if sorted(ref) != list(range(1, PRETRAIN_STEPS + 1)) or not np.isfinite(losses).all():
-            fail("the pretraining run did not log a finite loss at every step")
-        if counts != want:
-            fail("the pretraining run did not run every attention through the kernels exactly once")
-        print(f"pretrain straight run, the caching allocator: {alloc} (cudaMalloc, cudaFree, "
-              f"retries after a failed allocation); Python's garbage collector: "
-              f"{len(pauses)} passes, {sum(t for _, t in pauses) * 1e3:.1f} ms in all, generation 2: "
-              f"{[round(t * 1e3, 1) for g, t in pauses if g == 2]} ms; "
-              f"{len(gc.get_objects())} objects tracked after the run", flush=True)
-        for last, what in ((10, "the first steps"), (20, "before the first save"),
-                           (30, "the step-20 save inside"), (40, "no save inside; the step-40 save comes after")):
-            rate = ref[last]["samples_per_s"]
-            print(f"pretrain loop rate, steps {last - 9}-{last} ({what}): {rate:.2f} samples/s (host "
-                  f"clock between metric drains) beside bench_train_step({TRAIN_BATCH}) "
-                  f"{bench_rate:.2f} slices/s: the loop costs {100 * (1 - rate / bench_rate):.1f}% "
-                  f"over the bare step", flush=True)
-        ck = json.loads((straight / "checkpoints.json").read_text())
-        print(f"pretrain checkpoints: {ck['saves']} saves of {ck['bytes']} bytes; the loop blocked "
-              f"{[round(b * 1e3, 1) for b in ck['blocked_each_s']]} ms in save() (each save), of which "
-              f"{ck['alloc_s'] * 1e3:.1f} ms allocating the snapshot buffers on the card (the first "
-              f"save; later saves reuse them); the snapshot copies took "
-              f"{ck['snapshot_device_s'] * 1e3:.3f} ms of device time in all; the writes took "
-              f"{ck['write_s'] * 1e3:.1f} ms in all (device -> host, serialise, rename; in the "
-              f"background); total {(ck['blocked_s'] + ck['write_s']) * 1e3:.1f} ms", flush=True)
-
-        # 2. Resumed from the straight run's step-20 checkpoint, which was
-        # written in the background while steps 21 on updated the state in
-        # place: the snapshot must hold step 20's state.
-        mid = tmp / "from20"
-        (mid / "ckpt").mkdir(parents=True)
-        shutil.copytree(straight / "ckpt" / "20", mid / "ckpt" / "20")
-        shutil.copy(straight / "config.json", mid / "config.json")
-        run_cli(PRETRAIN_ARGS + ["--max-steps", str(PRETRAIN_STEPS), "--run-dir", str(mid),
-                                 "--resume", str(mid)], "resume from step 20")
-        got = read_metrics(mid)
-        rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(21, PRETRAIN_STEPS + 1)]
-        print(f"pretrain resume from the step-20 checkpoint (saved asynchronously while the loop "
-              f"went on): steps {min(got)}-{max(got)}, lr bit-equal "
-              f"{all(got[s]['lr'] == ref[s]['lr'] for s in got)}, losses max rel diff "
-              f"{max(rel):.3e} (tol {RESUME_TOL})", flush=True)
-        if (sorted(got) != list(range(21, PRETRAIN_STEPS + 1)) or max(rel) > RESUME_TOL
-                or not all(got[s]["lr"] == ref[s]["lr"] for s in got)):
-            fail("the step-20 checkpoint does not hold the state of step 20")
-
-        # 3. The same run interrupted by SIGINT, then resumed.
-        killed = tmp / "killed"
-        cmd = [sys.executable, "-m", "dinox_torch.pretrain", *PRETRAIN_ARGS, "--max-steps",
-               str(PRETRAIN_STEPS), "--run-dir", str(killed)]
-        with open(tmp / "leg1.log", "w") as log:
-            proc = subprocess.Popen(cmd + ["--metric-flush-steps", "1"], cwd=root, stdout=log,
-                                    stderr=subprocess.STDOUT)
-            try:
-                deadline = time.monotonic() + 600
-                while max(read_metrics(killed), default=0) < PRETRAIN_KILL_AT:
-                    if proc.poll() is not None or time.monotonic() > deadline:
-                        fail(f"the first leg ended or stalled before step {PRETRAIN_KILL_AT}:\n"
-                             f"{(tmp / 'leg1.log').read_text()[-3000:]}")
-                    time.sleep(0.05)
-                proc.send_signal(signal.SIGINT)
-                rc = proc.wait(timeout=300)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-        leg1 = read_metrics(killed)
-        seam = max(leg1)
-        saved = sorted(int(d.name) for d in (killed / "ckpt").iterdir() if d.name.isdigit())
-        print(f"pretrain SIGINT at step >= {PRETRAIN_KILL_AT}: exit {rc}, stopped at step {seam}, "
-              f"checkpoints {saved}", flush=True)
-        if rc != 0 or not saved or saved[-1] != seam or seam >= PRETRAIN_STEPS:
-            fail(f"the interrupted run did not exit 0 with a checkpoint at its last step:\n"
-                 f"{(tmp / 'leg1.log').read_text()[-3000:]}")
-        t0 = time.perf_counter()
-        leg2 = subprocess.run(cmd + ["--resume", str(killed)], cwd=root, capture_output=True, text=True,
-                              timeout=900)
-        leg2_s = time.perf_counter() - t0
-        if leg2.returncode != 0:
-            fail(f"the resumed run exited {leg2.returncode}:\n{leg2.stdout[-3000:]}{leg2.stderr[-3000:]}")
-        said = dict(re.findall(r"(restore_s|startup_s)=([0-9.]+)", leg2.stdout))
-        got = read_metrics(killed)
-        if sorted(got) != list(range(1, PRETRAIN_STEPS + 1)):
-            fail(f"the resumed run logged steps {sorted(got)}")
-        lr_equal = all(got[s]["lr"] == ref[s]["lr"] for s in got)
-        rel = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(seam + 1, PRETRAIN_STEPS + 1)]
-        before = [abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(1, seam + 1)]
-        print(f"pretrain resume from step {seam}: lr bit-equal to the straight run at every step: "
-              f"{lr_equal}; losses after the seam max rel diff {max(rel):.3e} (tol {RESUME_TOL}), "
-              f"before it {max(before):.3e}; restore {said.get('restore_s', '?')} s, "
-              f"start-up (main to the loop, restore included) {said.get('startup_s', '?')} s, "
-              f"the resumed leg {leg2_s:.1f} s in all for {PRETRAIN_STEPS - seam} steps", flush=True)
-        if not lr_equal or not np.isfinite(rel).all() or max(rel) > RESUME_TOL:
-            fail("the resumed run does not continue the straight run")
-
-        # 4. --fused-attn: kernel 6 for every block's attention half.
-        reset_launch_counts()
-        run_cli(PRETRAIN_ARGS + ["--fused-attn", "--max-steps", str(PRETRAIN_FUSED_STEPS),
-                                 "--run-dir", str(tmp / "fused")], "--fused-attn run")
-        fused_counts = launch_counts()
-        n = PRETRAIN_FUSED_STEPS
-        want = want_counts(fused_attn_block=n * 2 * depth, packed_attention_bwd_dq=n * depth,
-                           packed_attention_bwd_dkv=n * depth)
-        fused = read_metrics(tmp / "fused")
-        print(f"pretrain --fused-attn: {n} steps, losses "
-              f"{[round(fused[s]['loss'], 4) for s in sorted(fused)]}; launches {fused_counts} (want "
-              f"{want}: kernel 6 2 x depth, packed forward 0, dq/dkv depth, per step)", flush=True)
-        if fused_counts != want or not np.isfinite([r["loss"] for r in fused.values()]).all():
-            fail("the --fused-attn pretraining run did not go through kernel 6 exactly as expected")
-        counts["fused_attn_block"] = fused_counts["fused_attn_block"]
-
-        # 5. The host loader over a PNG tree, without and with the decoded
-        # cache. Metrics are drained at steps 20 and 40 only, and no periodic
-        # save falls in the run: steps 21-40 come well after the ~7 batches
-        # the loader and the prefetcher queue before the first step.
-        t0 = time.perf_counter()
-        index_csv = write_tree(tmp / "tree")
-        n_slices = TREE_SERIES * TREE_SLICES
-        print(f"wrote {TREE_SERIES} x {TREE_SLICES} {TREE_SIZE}^2 PNGs with write_png16 in "
-              f"{time.perf_counter() - t0:.1f} s; png decoder: {decoder_in_use()}", flush=True)
-        for cache in ("off", "build"):
-            run_dir = tmp / f"loader_{cache}"
-            reset_launch_counts()
-            wall, out = run_cli(CLI_ARGS + [
-                "--index-csv", str(index_csv), "--num-workers", "8", "--device-prefetch", "2",
-                "--decoded-cache", cache, "--max-steps", str(LOADER_STEPS), "--ckpt-every", "0",
-                "--metric-flush-steps", "20", "--metric-flush-secs", "600", "--run-dir", str(run_dir)],
-                f"loader run (--decoded-cache {cache})")
-            rows = read_metrics(run_dir)
-            decodes = int(re.search(r"png_decodes=(\d+)", out).group(1))
-            print(f"pretrain host loader (--decoded-cache {cache}, 8 workers, device prefetch 2): "
-                  f"{LOADER_STEPS} steps in {wall:.1f} s, losses finite "
-                  f"{bool(np.isfinite([r['loss'] for r in rows.values()]).all())}; steps 1-20: "
-                  f"samples_per_s {rows[20]['samples_per_s']:.2f}, data_wait_frac "
-                  f"{rows[20]['data_wait_frac']:.4f}; steps 21-{LOADER_STEPS}: samples_per_s "
-                  f"{rows[LOADER_STEPS]['samples_per_s']:.2f}, data_wait_frac "
-                  f"{rows[LOADER_STEPS]['data_wait_frac']:.4f}; PNG decodes in the run {decodes} "
-                  f"for {n_slices} slices ({decodes / n_slices:.2f} per slice); packed_attention "
-                  f"launches {launch_counts()['packed_attention']} (want {LOADER_STEPS * 2 * depth})",
-                  flush=True)
-            if (sorted(rows) != list(range(1, LOADER_STEPS + 1))
-                    or not np.isfinite([r["loss"] for r in rows.values()]).all()
-                    or "samples_per_s" not in rows[20] or "samples_per_s" not in rows[LOADER_STEPS]
-                    or launch_counts()["packed_attention"] != LOADER_STEPS * 2 * depth):
-                fail(f"the loader-fed pretraining run (--decoded-cache {cache}) failed")
-            if cache == "off" and decodes <= n_slices:
-                fail("the loader decoded no slice twice: the timed window read from its memory cache")
+        wall, out = run_cli(CLI_ARGS + [
+            "--index-csv", str(index_csv), "--num-workers", "8", "--device-prefetch", "2",
+            "--decoded-cache", cache, "--max-steps", str(LOADER_STEPS), "--ckpt-every", "0",
+            "--metric-flush-steps", "20", "--metric-flush-secs", "600", "--run-dir", str(run_dir)],
+            f"loader run (--decoded-cache {cache})")
+        rows = read_metrics(run_dir)
+        decodes = int(re.search(r"png_decodes=(\d+)", out).group(1))
+        print(f"pretrain host loader (--decoded-cache {cache}, 8 workers, device prefetch 2): "
+              f"{LOADER_STEPS} steps in {wall:.1f} s, losses finite "
+              f"{bool(np.isfinite([r['loss'] for r in rows.values()]).all())}; steps 1-20: "
+              f"samples_per_s {rows[20]['samples_per_s']:.2f}, data_wait_frac "
+              f"{rows[20]['data_wait_frac']:.4f}; steps 21-{LOADER_STEPS}: samples_per_s "
+              f"{rows[LOADER_STEPS]['samples_per_s']:.2f}, data_wait_frac "
+              f"{rows[LOADER_STEPS]['data_wait_frac']:.4f}; PNG decodes in the run {decodes} "
+              f"for {n_slices} slices ({decodes / n_slices:.2f} per slice); packed_attention "
+              f"launches {launch_counts()['packed_attention']} (want {LOADER_STEPS * 2 * depth})",
+              flush=True)
+        if (sorted(rows) != list(range(1, LOADER_STEPS + 1))
+                or not np.isfinite([r["loss"] for r in rows.values()]).all()
+                or "samples_per_s" not in rows[20] or "samples_per_s" not in rows[LOADER_STEPS]
+                or launch_counts()["packed_attention"] != LOADER_STEPS * 2 * depth):
+            fail(f"the loader-fed pretraining run (--decoded-cache {cache}) failed")
+        if cache == "off" and decodes <= n_slices:
+            fail("the loader decoded no slice twice: the timed window read from its memory cache")
     return counts
+
+
+def eval_forwards(rows: list[IndexRow], batch: int, n_retrieval: int, max_slices: int,
+                  n_counterfactual: int) -> int:
+    """The forwards python -m dinox_torch.evaluate_panorgan makes over *rows*
+    (a scale-aware model): two per batch of each dataset's view retrieval,
+    one per batch of the deterministic embedding, three per batch of the
+    spacing counterfactual."""
+    by_ds: dict[str, int] = {}
+    for r in rows:
+        by_ds[r.dataset or "unknown"] = by_ds.get(r.dataset or "unknown", 0) + 1
+
+    def batches(n: int) -> int:
+        return -(-n // batch)
+
+    return (sum(2 * batches(min(n_retrieval, n)) for n in by_ds.values())
+            + batches(min(max_slices, len(rows))) + 3 * batches(min(n_counterfactual, len(rows))))
+
+
+def print_device_profile(fn, wall_ms: float, label: str, what: str) -> None:
+    """One call of *fn* under torch.profiler: its device time beside
+    *wall_ms* (the busy share) and its eight costliest kernels."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                      if e.self_device_time_total > 0), reverse=True)
+    busy_ms = sum(t for t, _, _ in by_name) / 1e3
+    print(f"{label} device time (torch.profiler, {what}): {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+          f"wall = {100 * busy_ms / wall_ms:.1f}% busy; top items:", flush=True)
+    for t, count, key in by_name[:8]:
+        print(f"  {t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+
+
+def first_batch(rows: list[IndexRow], n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The evaluation loader's first batch of *n* rows (pixels, spacing)."""
+    batches = _load_batches(rows, np.arange(min(n, len(rows))), 512, n)
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def cls_cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def eval_path(tmp: Path) -> dict[str, int]:
+    """Evaluation (module 9) at full ViT-S width and depth on the pretraining
+    phase's straight run and PNG tree: evaluate_panorgan.main through
+    run_export (every metric a number, kernel 1 launches == depth x
+    forwards), embed_rows against plain attention (CLS cosine >= 0.999),
+    embedded slices/s with and without PNG decoding, view_retrieval_eval
+    and check_checkpoint once each. Returns evaluate_panorgan's launches."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    run, index_csv = tmp / "straight", tmp / "tree" / "index.csv"
+    rows = load_index_rows(index_csv)
+    reset_launch_counts()
+    wall, _ = run_cli(["--checkpoint", str(run), "--index-csv", str(index_csv), "--out",
+                       str(tmp / "eval.json")], "on the straight run", evaluate_panorgan.main)
+    counts = launch_counts()
+    forwards = eval_forwards(rows, 64, 512, 4096, 256)
+    res = json.loads((tmp / "eval.json").read_text())["metrics"]
+    print(f"evaluate_panorgan over {len(rows)} slices of {len({r.dataset for r in rows})} datasets: "
+          f"{wall:.1f} s; {forwards} forwards, launches {counts} (want kernel 1 depth x forwards "
+          f"= {depth * forwards}, every other 0); probe {res['dataset_discrimination_probe']}; "
+          f"spacing r2 {res['spacing_prediction'].get('r2')}; clustering enrichment "
+          f"{res['domain_clustering']['enrichment_vs_random']:.3f}; counterfactual "
+          f"{res['spacing_counterfactual']['cosine_distance_real_vs_2x']}", flush=True)
+    if counts != want_counts(packed_attention=depth * forwards):
+        fail("evaluate_panorgan did not run every forward's attention through kernel 1 exactly once")
+    numbers = [
+        *(v["top1"] for v in res["view_retrieval_per_dataset"].values()),
+        res["dataset_discrimination_probe"].get("accuracy"), res["dataset_discrimination_probe"].get("auc"),
+        res["spacing_counterfactual"].get("cosine_distance_real_vs_2x", {}).get("mean"),
+        res["domain_clustering"].get("overall_same_dataset_rate"), res["spacing_prediction"].get("r2"),
+        *(d["embedding_std"] for d in res["embedding_stats"]["per_dataset"].values())]
+    if (len(res["view_retrieval_per_dataset"]) != 5 or any("error" in v for v in res.values())
+            or not all(isinstance(x, float) and np.isfinite(x) for x in numbers)):
+        fail(f"evaluate_panorgan left a metric without a number: {res}")
+
+    model = load_any_model(run, "cuda")
+    ref = LoadedModel(model.cfg.replace(attn_impl="xla"), "cuda")
+    ref.load_state_dict(model.state_dict())
+    some = rows[:256]  # eight whole series
+    got, _ = embed_rows(model, some)
+    want, _ = embed_rows(ref, some)
+    cos = cls_cosine(got, want)
+    t0 = time.perf_counter()
+    embed_rows(model, rows)
+    with_decode = len(rows) / (time.perf_counter() - t0)
+    pixels, spacing = first_batch(rows, 64)
+    px = torch.as_tensor(pixels, device="cuda")
+
+    def embed_batch():
+        return model(eval_transform(px, 224), spacing)[:, 0].float().cpu()
+
+    embed_batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        embed_batch()
+    from_memory = 10 * len(px) / (time.perf_counter() - t0)
+    print(f"embed_rows vs plain attention on the card: CLS cosine min {cos.min():.6f} over "
+          f"{len(some)} slices; embedded slices/s (bs64, host clock): {with_decode:.2f} from the "
+          f"PNGs ({len(rows)} slices, decode on 8 threads + eval transform + forward), "
+          f"{from_memory:.2f} from a decoded batch in memory (eval transform + forward + "
+          f"the CLS to the host)", flush=True)
+    if cos.min() < 0.999:
+        fail("embed_rows through the kernel disagrees with plain attention")
+
+    _, out = run_cli(["--checkpoint", str(run), "--index-csv", str(index_csv), "--out",
+                      str(tmp / "vr.json")], "on the straight run", view_retrieval_eval.main, (0, 2))
+    vr = json.loads((tmp / "vr.json").read_text())
+    if vr["n"] != min(512, len(rows)) or not np.isfinite(vr["top1"]) or ("PASS" if vr["passed"] else "FAIL") not in out:
+        fail(f"view_retrieval_eval wrote {vr}")
+    _, out = run_cli(["--run-dir", str(run)], "on the straight run", check_checkpoint.main)
+    if f"latest: step={PRETRAIN_STEPS} " not in out or f"metrics: {PRETRAIN_STEPS} steps" not in out:
+        fail("check_checkpoint did not read the straight run's last checkpoint")
+    return counts
+
+
+def inference_path(peaks: tuple[float, float]) -> tuple[dict[str, int], dict]:
+    """python -m dinox_torch.bench_inference at full ViT-S width and depth:
+    the throughput mode unfused (kernel 1) and --fused-attn (kernel 6) at
+    bs 64-512, INFER_REPEATS times in turn, each batch size over
+    INFER_IMAGES images; the --slo mode through EmbedService at concurrency
+    1/4/16 both ways, SLO_SAMPLES requests each; exact launch counts; then
+    kernel 1 timed at the bench's largest shape. Returns the launches
+    (kernel 1 of the unfused runs, kernel 6 of the fused) and that timing."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    total: dict[str, int] = {"packed_attention": 0, "fused_attn_block": 0}
+    rates: dict[str, list[list[float]]] = {"": [], " --fused-attn": []}
+    for rep in range(INFER_REPEATS):
+        for fused in ([], ["--fused-attn"]):
+            kernel, tag = ("fused_attn_block", " --fused-attn") if fused else ("packed_attention", "")
+            res, forwards = [], 0
+            reset_launch_counts()
+            for bs in INFER_BATCHES:
+                steps = INFER_IMAGES // bs
+                _, out = run_cli(["--batch-sizes", str(bs), "--steps", str(steps), *fused],
+                                 f"throughput bs{bs}{tag}", bench_inference.main)
+                res += json.loads(out.strip().splitlines()[-1])["all"]
+                forwards += 1 + steps
+            counts = launch_counts()
+            rates[tag].append([r["img_per_sec"] for r in res])
+            print(f"bench_inference{tag} (pass {rep + 1} of {INFER_REPEATS}, {INFER_IMAGES} images "
+                  f"a batch size): {[(r['batch_size'], r['img_per_sec'], r['latency_ms']) for r in res]} "
+                  f"(bs, img/s, ms a batch); launches {counts} (want {kernel} depth x {forwards} "
+                  f"forwards)", flush=True)
+            if [r["batch_size"] for r in res] != INFER_BATCHES or counts != want_counts(
+                    **{kernel: depth * forwards}):
+                fail("bench_inference did not run every batch size through its kernel exactly as expected")
+            total[kernel] += counts[kernel]
+            if rep:
+                continue
+            # Where the bs512 forward's time goes: the bench's model, one forward.
+            model = PatchViT(MODEL_CONFIGS["vit-small"].replace(scale_aware=True, fused_attn=bool(fused)),
+                             device="cuda").eval()
+            x = torch.randn((INFER_BATCHES[-1], 224, 224, 3), device="cuda")
+            sp = torch.rand((INFER_BATCHES[-1], 3), device="cuda") + 0.4
+            with torch.inference_mode():
+                model(x, sp)
+                print_device_profile(lambda: model(x, sp), res[-1]["latency_ms"],
+                                     f"bench_inference bs{INFER_BATCHES[-1]}{tag}",
+                                     "one forward, beside the bench's ms per batch")
+            del model, x, sp
+            rows = []
+            reset_launch_counts()
+            forwards = 0
+            for conc in SLO_CONCURRENCY:
+                _, out = run_cli(["--slo", "--concurrency", str(conc), "--requests-per-client",
+                                  str(-(-SLO_SAMPLES // conc)), *fused], f"--slo c{conc}{tag}",
+                                 bench_inference.main)
+                rows += json.loads(out.strip().splitlines()[-1])["all"]
+                # The requests' forwards and the warm-up's one forward a bucket (1, 8, 32).
+                forwards += int(re.search(r"service forwards=(\d+)", out).group(1)) + 3
+            counts = launch_counts()
+            print(f"bench_inference --slo{tag} ({SLO_SAMPLES}+ requests a concurrency): {rows}; "
+                  f"{forwards} forwards ({3 * len(SLO_CONCURRENCY)} of them the warm-ups'), launches "
+                  f"{counts} (want {kernel} depth x forwards)", flush=True)
+            if ([r["concurrency"] for r in rows] != SLO_CONCURRENCY
+                    or counts != want_counts(**{kernel: depth * forwards})):
+                fail("the --slo bench did not run every forward through its kernel exactly once")
+            total[kernel] += counts[kernel]
+    for tag, runs in rates.items():
+        spread = [f"{min(r):.1f}-{max(r):.1f}" for r in zip(*runs)]
+        print(f"bench_inference{tag} img/s over {INFER_REPEATS} passes, bs {INFER_BATCHES}: "
+              f"{spread}", flush=True)
+    return total, time_forward(peaks, INFER_SHAPE, "inference bench bs512", SEED + 7)
+
+
+def labeled_csvs(tmp: Path) -> tuple[Path, Path]:
+    """Two classes from the tree, one profile each (the first two datasets
+    by name): FT_TRAIN rows of the first series for training, FT_VAL of the
+    last for validation, half of each class."""
+    rows = load_index_rows(tmp / "tree" / "index.csv")
+    names = sorted({r.dataset for r in rows})[:2]
+    paths = []
+    for split, n in (("train", FT_TRAIN), ("val", FT_VAL)):
+        picked = []
+        for label, name in enumerate(names):
+            mine = [r for r in rows if r.dataset == name]
+            picked += [(r, label) for r in (mine[:n // 2] if split == "train" else mine[-(n // 2):])]
+        path = tmp / f"{split}.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["image_path", "label", "spacing_x", "spacing_y", "spacing_z"])
+            w.writerows([r.png_path, label, r.spacing_x, r.spacing_y, r.spacing_z] for r, label in picked)
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def finetune_path(tmp: Path, bench_rate: float) -> dict[str, int]:
+    """LoRA fine-tuning (module 10) at full ViT-S width and depth from the
+    straight run: finetune_lora.main at bs 32, rank 8, 2 epochs, with
+    --unfreeze-blocks 0 and 1 (exact launch counts: kernel 1, dq and dkv
+    depth per step, kernel 1 depth per validation forward, every other 0;
+    finite losses; the files written); the adapter loaded and merged (CLS
+    cosine >= 0.999 against the unmerged model); one LoRA loss and backward
+    through the kernels against plain attention (loss within 1e-2 relative,
+    adapter gradients at cosine >= 0.99); the step's ms and samples/s.
+    Returns the launches of the two runs."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    run = tmp / "straight"
+    train_csv, val_csv = labeled_csvs(tmp)
+    steps, val_batches = 2 * (FT_TRAIN // FT_BATCH), 2 * -(-FT_VAL // FT_BATCH)
+    total = dict.fromkeys(COUNTERS, 0)
+    for unfreeze in ("0", "1"):
+        out_dir = tmp / f"adapter{unfreeze}"
+        reset_launch_counts()
+        wall, _ = run_cli(["--backbone", str(run), "--train-csv", str(train_csv), "--val-csv",
+                           str(val_csv), "--out", str(out_dir), "--epochs", "2", "--batch-size",
+                           str(FT_BATCH), "--rank", "8", "--warmup-steps", "2", "--lr", "1e-3",
+                           "--unfreeze-blocks", unfreeze], f"--unfreeze-blocks {unfreeze}",
+                          finetune_lora.main)
+        counts = launch_counts()
+        want = want_counts(packed_attention=depth * (steps + val_batches),
+                           packed_attention_bwd_dq=depth * steps, packed_attention_bwd_dkv=depth * steps)
+        history = json.loads((out_dir / "history.json").read_text())
+        files = sorted(p.name for p in out_dir.iterdir())
+        print(f"finetune_lora --unfreeze-blocks {unfreeze}: {steps} steps of bs{FT_BATCH} and "
+              f"{val_batches} validation forwards in {wall:.1f} s; history "
+              f"{[{k: round(v, 4) for k, v in h.items()} for h in history]}; files {files}; "
+              f"launches {counts} (want {want})", flush=True)
+        expected = {"adapter_config.json", "adapter_model.safetensors", "finetune_config.json",
+                    "head.pth", "history.json"} | ({"unfrozen_blocks.pth"} if unfreeze == "1" else set())
+        if (counts != want or len(history) != 2 or set(files) != expected
+                or not np.isfinite([[h["train_loss"], h["loss"]] for h in history]).all()):
+            fail(f"finetune_lora --unfreeze-blocks {unfreeze} did not run as expected")
+        for k in total:
+            total[k] += counts[k]
+
+    base = load_any_model(run, "cuda")
+    lora = load_adapter(base, tmp / "adapter0")
+    merged = merge_adapter(lora)
+    rows = load_index_rows(tmp / "tree" / "index.csv")[:FT_BATCH]
+    cos = cls_cosine(embed_rows(lora, rows)[0], embed_rows(merged, rows)[0])
+    print(f"load_adapter + merge_adapter: CLS cosine min {cos.min():.6f} against the unmerged "
+          f"model ({len(rows)} slices)", flush=True)
+    if cos.min() < 0.999:
+        fail("the merged adapter disagrees with the unmerged model")
+
+    # One LoRA loss and backward, kernels against plain attention, from one
+    # state with a non-zero B (a zero B leaves A without a gradient).
+    pixels, spacing = first_batch(rows, len(rows))
+    x = eval_transform(torch.as_tensor(pixels, device="cuda"), 224)
+    sp = torch.as_tensor(spacing, device="cuda")
+    labels = (torch.arange(len(rows), device="cuda") % 2).float()
+    ft_cfg = FinetuneConfig()
+    results = []
+    for impl in ("pallas", "xla"):
+        model = LoadedModel(base.cfg.replace(attn_impl=impl), "cuda")
+        model.load_state_dict(base.state_dict())
+        adapted = apply_lora(model, rank=8, dropout=0.0, generator=torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(SEED + 1)
+            for m in adapted.lora_layers():
+                m.lora_B.weight.copy_(torch.randn(m.lora_B.weight.shape, generator=g) * 0.02)
+        head = init_head(ft_cfg, base.dim, device="cuda")
+        adapted.train()
+        loss = finetune_loss(adapted, head, x, sp, labels, "classification")
+        loss.backward()
+        results.append((float(loss.detach()), {k: p.grad.float() for k, p in adapted.adapter_params().items()}))
+    (l1, g1), (l2, g2) = results
+    grad_cos = min(float(F.cosine_similarity(g1[k].flatten(), g2[k].flatten(), dim=0)) for k in g1)
+    print(f"LoRA micro-step (bs{len(rows)}) kernels vs plain attention: loss {l1:.6f} vs {l2:.6f} "
+          f"(rel {abs(l1 - l2) / abs(l2):.2e}), adapter gradient cosine min {grad_cos:.6f} over "
+          f"{len(g1)} tensors", flush=True)
+    if abs(l1 - l2) > 1e-2 * abs(l2) or grad_cos < 0.99:
+        fail("the LoRA micro-step through the kernels disagrees with plain attention")
+
+    # The fine-tuning step's time, on a batch on the card.
+    model = apply_lora(base, rank=8, generator=torch.Generator().manual_seed(SEED))
+    head = init_head(ft_cfg, base.dim, device="cuda")
+    state = FinetuneState(model, head, make_finetune_optimizer(ft_cfg, model, head))
+    step, _ = build_finetune_step(state, ft_cfg)
+    px, lab = torch.as_tensor(pixels, device="cuda"), labels
+    for _ in range(3):
+        step(px, sp, lab)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(px, sp, lab) for _ in range(10)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(f"fine-tuning step (LoRA rank 8, bs{FT_BATCH}, augmentation + forward + backward + "
+          f"AdamW): {step_ms:.2f} ms, {FT_BATCH / step_ms * 1e3:.2f} samples/s (host clock over "
+          f"10 steps) beside bench_train_step({TRAIN_BATCH}) {bench_rate:.2f} slices/s; losses "
+          f"finite {bool(torch.isfinite(torch.stack(losses)).all())}", flush=True)
+    if not torch.isfinite(torch.stack(losses)).all():
+        fail("the fine-tuning step gave a non-finite loss")
+    print_device_profile(lambda: step(px, sp, lab), step_ms, f"fine-tuning step bs{FT_BATCH}",
+                         "one step")
+    return total
 
 
 def main() -> int:
@@ -1446,16 +1827,7 @@ def main() -> int:
         xt = torch.as_tensor(x32, device="cuda")
         st = torch.as_tensor(sp32, device="cuda")
         fwd_ms = median_ms(lambda: service.model(xt, st), iters=20, warmup=3)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            service.model(xt, st)
-            torch.cuda.synchronize()
-        by_name = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                          if e.self_device_time_total > 0), reverse=True)
-        busy_ms = sum(t for t, _, _ in by_name) / 1e3
-        print(f"bs32 forward device time (torch.profiler, one forward): {busy_ms:.3f} ms of "
-              f"{fwd_ms:.3f} ms wall = {100 * busy_ms / fwd_ms:.1f}% busy; top items:", flush=True)
-        for t, count, key in by_name[:8]:
-            print(f"  {t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+        print_device_profile(lambda: service.model(xt, st), fwd_ms, "bs32 forward", "one forward")
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1492,8 +1864,19 @@ def main() -> int:
     fused = time_fused(peaks)
     mha = time_mha(peaks)
 
-    # -- the pretraining CLI (module 8) ---------------------------------------
-    pretrain_counts = pretrain_path(card, bench_rate)
+    # -- the pretraining CLI (module 8), then evaluation (module 9), the
+    # inference bench and LoRA fine-tuning (module 10) on its run and tree --
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pretrain_counts = pretrain_path(card, bench_rate, tmp)
+        eval_counts = eval_path(tmp)
+        infer_counts, infer_fwd = inference_path(peaks)
+        finetune_counts = finetune_path(tmp, bench_rate)
+
+    def later_paths(name: str) -> dict[str, int]:
+        return {"eval_launches": eval_counts[name],
+                "bench_inference_launches": infer_counts.get(name, 0),
+                "finetune_launches": finetune_counts[name]}
 
     kernels = [{
         "name": "packed_attention",
@@ -1513,6 +1896,11 @@ def main() -> int:
                      "plain_ms": fwd_train["plain_ms"], "bound_ms": fwd_train["bound"][0],
                      "library_ms": fwd_train["library_ms"], "device_ms": fwd_train["device_ms"]},
         "pretrain_launches": pretrain_counts["packed_attention"],
+        **later_paths("packed_attention"),
+        "inference_bench": {"shape": infer_fwd["shape"], "ms": infer_fwd["ms"],
+                            "plain_ms": infer_fwd["plain_ms"], "bound_ms": infer_fwd["bound"][0],
+                            "bound_by": infer_fwd["bound"][1], "library_ms": infer_fwd["library_ms"],
+                            "device_ms": infer_fwd["device_ms"]},
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -1534,6 +1922,7 @@ def main() -> int:
             "device_ms": bwd[part]["device_ms"],
             "library_device_ms": bwd[part]["library_device_ms"],
             "pretrain_launches": pretrain_counts[name],
+            **later_paths(name),
         })
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
@@ -1567,6 +1956,7 @@ def main() -> int:
                                 "device_ms": serving["device_ms"], "parts": serving["parts"]}
             entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
             entry["pretrain_launches"] = pretrain_counts["fused_attn_block"]  # the --fused-attn run
+            entry.update(later_paths("fused_attn_block"))
         if name.startswith("fused_mlp"):  # two or six launches: parts holds each one's device time
             entry["device_ms"] = t["device_ms"]
             entry["parts"] = {p: {"launches": fused_counts[f"{name}_{p}"], **v}

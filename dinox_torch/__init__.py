@@ -8,14 +8,19 @@ the same name:
 * ``ops/``     hand-written Hopper kernels (``csrc/*.cu``), each beside its
   plain PyTorch version (``flash_attention``: packed attention forward and
   backward); ``_build`` compiles them with nvcc at first use; ``augment``
-  (two-view training augmentation on the card).
+  (two-view training augmentation and the eval transform on the card).
 * ``train/``   ``losses``, ``schedule``, ``state`` (TrainConfig, AdamW,
   train state), ``step`` (the DINO + Gram + KoLeo training step),
   ``checkpoint`` (safetensors checkpoints, resume), ``anomaly`` and
-  ``trainer`` (the training loop).
+  ``trainer`` (the training loop), ``run_export`` (a run's backbone) and
+  ``finetune`` (LoRA fine-tuning with a task head).
+* ``evaluation/`` ``embedder`` (batched CLS embeddings of index rows),
+  ``metrics`` (the six-metric protocol) and ``linear`` (its logistic
+  regression, ridge and AUROC, in numpy and scipy).
 * ``zoo/``     ``interop`` (timm <-> JAX-package keys), ``hub`` (load/export
   hub dirs and training checkpoints), ``encode`` (HU preprocessing and
-  batched encode), ``safetensors_io``, ``lineage`` (the git commit).
+  batched encode), ``peft`` (LoRA adapters in the HF peft format),
+  ``safetensors_io``, ``lineage`` (the git commit).
 * ``data/``    ``hu`` constants, ``index`` and ``sampler`` (the index CSV
   and epoch orders), ``png16`` (the 16-bit PNG codec), ``pipeline``
   (``TrainLoader``), ``slice_cache``, ``synthetic`` and ``prefetch``.
@@ -24,6 +29,9 @@ the same name:
 * ``serve``    the embedding server (``python -m dinox_torch.serve``).
 * ``bench``    the training benchmark (``python -m dinox_torch.bench``).
 * ``pretrain`` the pretraining CLI (``python -m dinox_torch.pretrain``).
+* ``evaluate_panorgan``, ``view_retrieval_eval``, ``check_checkpoint``,
+  ``bench_inference`` and ``finetune_lora``: the evaluation, inference
+  bench and fine-tuning CLIs (``python -m dinox_torch.<name>``).
 
 The port imports neither JAX nor anything of ``dinox_tpu``.
 """

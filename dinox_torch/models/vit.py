@@ -33,6 +33,12 @@ rounding points:
   rounding points (f32 biases and residual, one rounding each), read the
   same parameters, and leave ``state_dict()`` unchanged; a tanh-GELU config
   keeps the unfused MLP, as in the JAX package.
+* ``lora_rank > 0`` gives each ``qkv``/``proj``/``fc1``/``fc2`` named in
+  ``cfg.lora_targets`` the LoRA factors ``lora_A.weight`` (r, in) and
+  ``lora_B.weight`` (out, r) (:class:`Linear`), so ``state_dict()`` keys
+  are peft's without their ``base_model.model.`` prefix. Adapted blocks
+  keep off the fused half-blocks, as in the JAX package; their attention
+  is kernel 1 forward and kernels 2/3 backward.
 * ``use_grad_checkpoint`` recomputes each block in the backward
   (``torch.utils.checkpoint``), only in training mode, like the JAX
   package's ``nn.remat`` under ``train=True``.
@@ -73,16 +79,50 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "xla") -
     return sdpa_xla(q, k, v)
 
 
-class Linear(nn.Module):
-    """Dense layer: ``x @ W^T`` rounded to x's dtype, then ``+ b`` in that dtype."""
+class LoraFactor(nn.Module):
+    """One LoRA factor, a bias-free weight: ``lora_A`` (r, in), ``lora_B`` (out, r)."""
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
+
+
+class Linear(nn.Module):
+    """Dense layer: ``x @ W^T`` rounded to x's dtype, then ``+ b`` in that dtype.
+
+    With *lora* = (rank, alpha, dropout) it also owns the factors ``lora_A``
+    and ``lora_B`` (the peft names) and adds ``(alpha / r) * dropout(x) @ A^T
+    @ B^T`` with the JAX package's rounding points: ``h @ A^T`` rounds to x's
+    dtype before the scale, then ``@ B^T`` and the sum in that dtype.
+    Dropout acts only in training mode, with masks drawn from ``generator``
+    (a ``torch.Generator`` on x's device that the caller sets)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 lora: Optional[tuple[int, float, float]] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.lora_rank = 0
+        if lora:
+            self.lora_rank, alpha, self.lora_dropout = int(lora[0]), float(lora[1]), float(lora[2])
+            self.lora_scale = alpha / self.lora_rank
+            self.lora_A = LoraFactor(in_features, self.lora_rank)
+            self.lora_B = LoraFactor(self.lora_rank, out_features)
+            self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+        y = torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+        if not self.lora_rank:
+            return y
+        h = x
+        if self.training and self.lora_dropout > 0.0:
+            if self.generator is None:
+                raise ValueError("LoRA dropout in training mode needs a generator "
+                                 "(PatchViT.set_lora_generator)")
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.lora_dropout
+            h = torch.where(keep, x / (1.0 - self.lora_dropout), torch.zeros_like(x))
+        t = torch.matmul(h, self.lora_A.weight.to(x.dtype).t()) * self.lora_scale
+        return y + torch.matmul(t, self.lora_B.weight.to(x.dtype).t())
 
 
 class LayerNorm(nn.Module):
@@ -125,14 +165,14 @@ class PatchEmbed(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with a fused ``qkv`` projection and ``proj``."""
 
-    def __init__(self, dim: int, heads: int, attn_impl: str):
+    def __init__(self, dim: int, heads: int, attn_impl: str, lora=lambda name: None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
         self.heads = heads
         self.attn_impl = attn_impl
-        self.qkv = Linear(dim, 3 * dim)
-        self.proj = Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim, lora("qkv"))
+        self.proj = Linear(dim, dim, lora("proj"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qkv = self.qkv(x)
@@ -146,10 +186,10 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int, gelu_approx: bool):
+    def __init__(self, dim: int, hidden: int, gelu_approx: bool, lora=lambda name: None):
         super().__init__()
-        self.fc1 = Linear(dim, hidden)
-        self.fc2 = Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden, lora("fc1"))
+        self.fc2 = Linear(hidden, dim, lora("fc2"))
         self.approximate = "tanh" if gelu_approx else "none"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -174,10 +214,15 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
         super().__init__()
+        def lora(name: str) -> Optional[tuple[int, float, float]]:
+            if cfg.lora_rank > 0 and name in cfg.lora_targets:
+                return cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout
+            return None
+
         self.norm1 = LayerNorm(cfg.dim, dtype)
-        self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl)
+        self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl, lora)
         self.norm2 = LayerNorm(cfg.dim, dtype)
-        self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx)
+        self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx, lora)
         self.fused_attn = takes_fused_attn(cfg)
         self.fused_mlp = takes_fused_mlp(cfg)
 
@@ -212,9 +257,11 @@ class ScaleEmbedding(nn.Module):
 
 
 def _reject_unported(cfg: ModelConfig) -> None:
-    for field, unported in (("lora_rank", cfg.lora_rank > 0), ("moe_experts", cfg.moe_experts > 0)):
-        if unported:
-            raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch yet")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"moe_experts={cfg.moe_experts!r} is not ported to dinox_torch yet")
+    unknown = set(cfg.lora_targets) - {"qkv", "proj", "fc1", "fc2"}
+    if cfg.lora_rank > 0 and unknown:
+        raise ValueError(f"unknown LoRA target modules: {sorted(unknown)}")
     if cfg.dtype not in DTYPES:
         raise ValueError(f"compute dtype {cfg.dtype!r} not supported (one of {sorted(DTYPES)})")
 
@@ -274,6 +321,28 @@ class PatchViT(nn.Module):
         if self.cfg.scale_aware:
             self.scale_embed.mlp[2].weight.zero_()
             self.scale_embed.mlp[3].weight.fill_(self.cfg.scale_gamma_init)
+        self.reset_lora_parameters(g)
+
+    def lora_layers(self) -> list[Linear]:
+        return [m for m in self.modules() if isinstance(m, Linear) and m.lora_rank]
+
+    @torch.no_grad()
+    def reset_lora_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fresh LoRA factors, as peft (and the JAX package) make them: B
+        zero, so the adapter starts as a no-op; A kaiming-uniform (bound
+        sqrt(1 / fan_in)), drawn from *generator* on the CPU (seed 0 when
+        None)."""
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        for m in self.lora_layers():
+            a = m.lora_A.weight
+            bound = (1.0 / a.shape[1]) ** 0.5
+            a.copy_(torch.rand(a.shape, generator=g) * (2 * bound) - bound)
+            m.lora_B.weight.zero_()
+
+    def set_lora_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every LoRA dropout draws its masks from."""
+        for m in self.lora_layers():
+            m.generator = generator
 
     def embed(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Patch embed + CLS + positional + scale token + registers -> (B, N, dim)."""

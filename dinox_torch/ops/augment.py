@@ -1,5 +1,6 @@
-"""Two-view training augmentation on the card: the counterpart of
-``dinox_tpu.ops.augment`` (``augment_views``).
+"""Two-view training augmentation and the deterministic eval transform on the
+card: the counterpart of ``dinox_tpu.ops.augment`` (``augment_views``,
+``eval_transform``).
 
 Per sample and view: a random deci-HU window, a RandomResizedCrop box
 (torchvision's rule: the first of 10 attempts that fits, else the
@@ -16,6 +17,11 @@ Randomness comes from an explicit ``torch.Generator`` (on the CPU; the few
 numbers per sample are copied to the card). jax.random's streams cannot be
 reproduced, so the tests compare the sampler by its statistics and the
 resampling at given boxes.
+
+:func:`eval_transform` is the fixed window, a resize of the short side to
+``img_size`` with the same antialiased cubic (``jax.image.resize(...,
+"cubic")``: the box is the whole image), a centre crop and the
+normalisation. Only the rows and columns the crop keeps are computed.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from dinox_torch.data.hu import (
+    EVAL_LEVEL,
+    EVAL_WIDTH,
     HU_SCALE,
     HU_SHIFT,
     IMAGENET_MEAN,
@@ -120,10 +128,17 @@ def _weight_mat(in_size: int, out_size: int, start: torch.Tensor, length: torch.
     scale = out_size / length
     translation = -start * out_size / length
     inv_scale = 1.0 / scale
-    kernel_scale = torch.clamp_min(inv_scale, 1.0)
-    dev = start.device
-    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) * inv_scale[:, None]
-                - (translation * inv_scale)[:, None] - 0.5)  # (count, out)
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=start.device) + 0.5)
+                * inv_scale[:, None] - (translation * inv_scale)[:, None] - 0.5)  # (count, out)
+    return _keys_weights(in_size, sample_f, torch.clamp_min(inv_scale, 1.0))
+
+
+def _keys_weights(in_size: int, sample_f: torch.Tensor, kernel_scale: torch.Tensor
+                  ) -> torch.Tensor:
+    """The weights of the (count, out) sample positions *sample_f* over
+    ``in_size`` inputs, the kernel widened by *kernel_scale* (count,):
+    normalised per output, zero for a sample outside the input."""
+    dev = sample_f.device
     x = torch.abs(sample_f[:, :, None]
                   - torch.arange(in_size, dtype=torch.float32, device=dev)) / kernel_scale[:, None, None]
     weights = _keys_cubic(x)
@@ -176,3 +191,30 @@ def augment_views(pixels: torch.Tensor, generator: torch.Generator,
         x = torch.where(flip[:, None, None, None], x.flip(2), x)
         views.append(normalize_imagenet(x))
     return torch.stack(views)
+
+
+def eval_transform(pixels: torch.Tensor, img_size: int = 224, level: float = EVAL_LEVEL,
+                   width: float = EVAL_WIDTH) -> torch.Tensor:
+    """Deterministic eval preprocessing: the fixed deci-HU window (L=40/W=400
+    by default), the short side resized to *img_size* (antialiased Keys
+    cubic, float32 products), the long side centre-cropped, ImageNet
+    normalisation. (B, H, W, 3) uint16 -> (B, S, S, 3) float32, on pixels'
+    device."""
+    x = decode_window(pixels, level, width)
+    b, h, w, c = x.shape
+    scale = img_size / min(h, w)
+    nh, nw = round(h * scale), round(w * scale)
+    top, left = (nh - img_size) // 2, (nw - img_size) // 2
+
+    def weights(size: int, out: int, first: int) -> torch.Tensor:
+        # jax.image.resize takes 1 / scale in double precision on the host.
+        inv = 1.0 / (out / size)
+        sample_f = (torch.arange(first, first + img_size, dtype=torch.float32, device=x.device)
+                    + 0.5) * inv - 0.5
+        kernel_scale = torch.full((1,), max(inv, 1.0), dtype=torch.float32, device=x.device)
+        return _keys_weights(size, sample_f[None], kernel_scale)[0]  # (S, size)
+
+    rows, cols = weights(h, nh, top), weights(w, nw, left)
+    t = torch.matmul(rows, x.reshape(b, h, w * c)).view(b, img_size, w, c)  # (B, S, W, C)
+    o = torch.matmul(cols, t.transpose(1, 2).reshape(b, w, img_size * c))  # (B, S_col, S_row*C)
+    return normalize_imagenet(o.view(b, img_size, img_size, c).transpose(1, 2))

@@ -45,6 +45,7 @@ from dinox_torch.train.state import TrainConfig, create_train_state, reject_unpo
 from dinox_torch.train.step import build_train_step
 from dinox_torch.train.trainer import train
 from dinox_torch.utils.platform import resolve_device
+from dinox_torch.utils.rng import seeded_generator
 from dinox_torch.zoo.lineage import get_git_commit
 
 
@@ -206,11 +207,6 @@ class SyntheticBatches:
             i += 1
 
 
-def _generator(device: torch.device, seed: int, i: int) -> torch.Generator:
-    words = np.random.SeedSequence([seed, i]).generate_state(2, np.uint32)
-    return torch.Generator(device=device).manual_seed(int(words[0]) << 32 | int(words[1]))
-
-
 class DeviceSyntheticBatches:
     """Pre-staged synthetic batches ON THE DEVICE, cycled: no per-step host
     to device copy. n_datasets=2 is the two-organ MVP generator (organ A ~
@@ -252,7 +248,7 @@ class DeviceSyntheticBatches:
 
         self._batches = []
         for i in range(n_batches):
-            px, sp = make(_generator(dev, seed, i))
+            px, sp = make(seeded_generator(seed, i, device=dev))
             self._batches.append((px.reshape(accum, batch_size, canvas, canvas, 3),
                                   sp.reshape(accum, batch_size, 3).float()))
         self._start = 0

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
 
 from dinox_torch.models.vit import DinoStudentTeacher
@@ -28,14 +27,10 @@ from dinox_torch.train.losses import dino_loss, gram_anchoring_loss, koleo_loss,
 from dinox_torch.train.schedule import get_lr_tensor
 from dinox_torch.train.state import TrainConfig, TrainState, apply_gradients, reject_unported
 from dinox_torch.utils.platform import resolve_device
+from dinox_torch.utils.rng import seeded_generator
 
 METRICS = ("loss", "loss_dino", "loss_gram", "loss_koleo", "loss_simclr", "loss_mae",
            "teacher_entropy", "student_entropy", "embed_std", "grad_norm", "lr")
-
-
-def _generator(seed: int, step: int, micro: int, stream: int) -> torch.Generator:
-    words = np.random.SeedSequence([seed, step, micro, stream]).generate_state(2, np.uint32)
-    return torch.Generator().manual_seed(int(words[0]) << 32 | int(words[1]))
 
 
 def micro_loss(student: DinoStudentTeacher, teacher: DinoStudentTeacher, center: torch.Tensor,
@@ -114,10 +109,10 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
         state.student.train()
         grads, center, seq = None, state.center, []
         for a in range(accum):
-            views = augment(pixels[a], _generator(cfg.train_seed, state.step, a, 0), aug_cfg)
+            views = augment(pixels[a], seeded_generator(cfg.train_seed, state.step, a, 0), aug_cfg)
             batch = views.reshape((-1,) + tuple(views.shape[2:]))
             g, center, metrics = micro_loss_and_grads(
-                state, center, batch, spacing[a], cfg, _generator(cfg.train_seed, state.step, a, 1))
+                state, center, batch, spacing[a], cfg, seeded_generator(cfg.train_seed, state.step, a, 1))
             grads = g if grads is None else torch._foreach_add(grads, g)
             seq.append(metrics)
         if accum > 1:

@@ -27,11 +27,13 @@ from dinox_torch.zoo.interop import migrate_state_dict, needs_migration, strip_p
 log = logging.getLogger(__name__)
 
 
-class LoadedModel(PatchViT):
-    """A PatchViT on an explicit device, called for inference on NHWC batches.
+class DeviceViT(PatchViT):
+    """A PatchViT on an explicit device (``cuda`` unless asked otherwise),
+    built in eval mode, with its config's sizes as properties.
 
-    ``model(x, spacing)`` takes numpy arrays or tensors and returns all
-    tokens (B, N, dim) as a float32 tensor on the model's device."""
+    ``model(x, spacing)`` takes NHWC numpy arrays or tensors, moves them to
+    the model's device as float32 and returns all tokens (B, N, dim),
+    differentiable."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device | str | None = None,
                  generator: Optional[torch.Generator] = None):
@@ -56,11 +58,19 @@ class LoadedModel(PatchViT):
     def patch(self) -> int:
         return self.cfg.patch
 
-    @torch.inference_mode()
     def forward(self, x, spacing=None) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if spacing is not None:
             spacing = torch.as_tensor(spacing, dtype=torch.float32, device=self.device)
+        return super().forward(x, spacing)
+
+
+class LoadedModel(DeviceViT):
+    """A DeviceViT called for inference: its forward runs under
+    ``torch.inference_mode()``."""
+
+    @torch.inference_mode()
+    def forward(self, x, spacing=None) -> torch.Tensor:
         return super().forward(x, spacing)
 
 

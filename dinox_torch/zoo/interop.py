@@ -14,6 +14,8 @@ trees) across into the port unchanged in value:
     blocks.N.mlp.{fc1,fc2}.weight          blocks_N.mlp.{fc1,fc2}.kernel (T)
     scale_embed.mlp.0.* / .2.* / .3.*      scale_embed.fc1 / fc2 / norm
     norm.{weight,bias}                     norm.{scale,bias}
+    blocks.N.<mod>.<s>.lora_A.weight (r,i) blocks_N.<mod>.<s>.lora_A (i,r)
+    blocks.N.<mod>.<s>.lora_B.weight (o,r) blocks_N.<mod>.<s>.lora_B (r,o)
 
 and, for the DINO student (:func:`jax_to_torch_student`), ``backbone.*``
 for the tree's ``backbone`` and ``head.{0,2}.{weight,bias}`` for
@@ -123,6 +125,9 @@ def torch_to_jax_backbone(sd: Mapping[str, Any]) -> dict[str, Any]:
             rest, leaf = parts[2:-1], parts[-1]
             if rest[0] in ("norm1", "norm2"):
                 put([blk, rest[0], "scale" if leaf == "weight" else "bias"], v)
+            elif rest[:2] in (["attn", "qkv"], ["attn", "proj"], ["mlp", "fc1"], ["mlp", "fc2"]) \
+                    and len(rest) == 3 and rest[2] in ("lora_A", "lora_B") and leaf == "weight":
+                put([blk, rest[0], rest[1], rest[2]], v.T)
             elif rest == ["attn", "qkv"] or rest == ["attn", "proj"]:
                 if leaf == "weight":
                     put([blk, "attn", rest[1], "kernel"], v.T)
@@ -183,6 +188,10 @@ def jax_to_torch_backbone(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
                 for s in subs:
                     sd[f"blocks.{i}.{mod}.{s}.weight"] = f32(np.asarray(node[mod][s]["kernel"]).T)
                     sd[f"blocks.{i}.{mod}.{s}.bias"] = f32(node[mod][s]["bias"])
+                    for factor in ("lora_A", "lora_B"):  # flax (i, r) / (r, o) -> (r, i) / (o, r)
+                        if factor in node[mod][s]:
+                            sd[f"blocks.{i}.{mod}.{s}.{factor}.weight"] = f32(
+                                np.asarray(node[mod][s][factor]).T)
         else:
             raise KeyError(f"unrecognized param subtree: {name}")
     return sd

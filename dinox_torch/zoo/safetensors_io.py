@@ -3,15 +3,19 @@
 Layout: an unsigned 64-bit little-endian header length, a JSON header
 ``{name: {"dtype", "shape", "data_offsets": [begin, end]}, "__metadata__"?}``,
 then the raw little-endian tensor bytes, offsets relative to the end of the
-header. bfloat16 tensors read as float32 (numpy has no bfloat16).
+header. bfloat16 tensors read as float32 (numpy has no bfloat16). A reader
+may pass a filter on the tensor names: only the tensors it keeps are read
+from disk, each at its own offset (a training state is several times the
+size of the backbone a reader wants from it).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 from pathlib import Path
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 
@@ -23,30 +27,38 @@ _DTYPES = {
 _NAMES = {v: k for k, v in _DTYPES.items()}
 
 
-def load_file(path: str | Path) -> dict[str, np.ndarray]:
-    data = Path(path).read_bytes()
-    if len(data) < 8:
-        raise ValueError(f"{path}: too short for a safetensors file")
-    (n,) = struct.unpack("<Q", data[:8])
-    if 8 + n > len(data):
-        raise ValueError(f"{path}: header length {n} runs past the end of the file")
-    header = json.loads(data[8:8 + n])
-    buf = memoryview(data)[8 + n:]
-    out: dict[str, np.ndarray] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        begin, end = info["data_offsets"]
-        if not 0 <= begin <= end <= len(buf):
-            raise ValueError(f"{path}: tensor {name} lies outside the data buffer")
-        shape = tuple(info["shape"])
-        if info["dtype"] == "BF16":
-            raw = np.frombuffer(buf[begin:end], dtype="<u2").astype(np.uint32) << 16
-            arr = raw.view(np.float32)
-        else:
-            arr = np.frombuffer(buf[begin:end], dtype=_DTYPES[info["dtype"]]).copy()
-        out[name] = arr.reshape(shape)
-    return out
+def _read(f, base: int, size: int, name: str, info: dict) -> np.ndarray:
+    """Tensor *name* of an open file whose data buffer starts at *base* and
+    holds *size* bytes, read at its header offsets."""
+    begin, end = info["data_offsets"]
+    if not 0 <= begin <= end <= size:
+        raise ValueError(f"{f.name}: tensor {name} lies outside the data buffer")
+    buf = bytearray(end - begin)
+    f.seek(base + begin)
+    if f.readinto(buf) != len(buf):
+        raise ValueError(f"{f.name}: tensor {name} is cut short")
+    if info["dtype"] == "BF16":
+        arr = (np.frombuffer(buf, dtype="<u2").astype(np.uint32) << 16).view(np.float32)
+    else:
+        arr = np.frombuffer(buf, dtype=_DTYPES[info["dtype"]])
+    return arr.reshape(tuple(info["shape"]))
+
+
+def load_file(path: str | Path, keys: Callable[[str], bool] | None = None
+              ) -> dict[str, np.ndarray]:
+    """Every tensor of the file, or those whose name *keys* accepts: each
+    read from disk at its own offset, so a filter reads only what it keeps."""
+    with open(path, "rb") as f:
+        total = os.fstat(f.fileno()).st_size
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: too short for a safetensors file")
+        (n,) = struct.unpack("<Q", head)
+        if 8 + n > total:
+            raise ValueError(f"{path}: header length {n} runs past the end of the file")
+        header = json.loads(f.read(n))
+        return {name: _read(f, 8 + n, total - 8 - n, name, info) for name, info in header.items()
+                if name != "__metadata__" and (keys is None or keys(name))}
 
 
 def save_file(tensors: Mapping[str, np.ndarray], path: str | Path) -> None:

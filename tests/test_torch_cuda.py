@@ -8,8 +8,10 @@ tile core of kernels 1 and 4 (csrc/attention_fwd_sm90.cuh), the backward
 tile core of kernels 2/3 and 5 (csrc/attention_bwd_sm90.cuh) and kernel 6's
 three launches (the GEMM core csrc/gemm_sm90.cuh around kernel 1's core) at
 the ragged edges of their tiling, with equal bits on two runs and no spills;
-and the pretraining loop's device side: the prefetcher's staged batches and
-the async checkpoint's snapshot under in-place updates.
+the pretraining loop's device side: the prefetcher's staged batches and
+the async checkpoint's snapshot under in-place updates; and evaluation and
+fine-tuning: the eval transform on the card, and a LoRA loss and backward
+of ViT-S through kernel 1 and the dq/dkv pair against plain attention.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -745,3 +747,60 @@ def test_async_checkpoint_holds_the_state_of_the_save_on_the_card(card, tmp_path
             np.testing.assert_array_equal(got[k], v.numpy(), err_msg=f"step {step}: {k}")
     mgr.close()
     assert len(mgr.stats["blocked_each_s"]) == 2
+
+
+# -- evaluation and LoRA fine-tuning on the card ---------------------------------
+
+
+def test_eval_transform_on_the_card_matches_the_cpu(card):
+    from dinox_torch.ops.augment import eval_transform
+
+    pixels = torch.randint(30500, 35500, (4, 512, 512, 3), generator=card, device="cuda").to(torch.uint16)
+    got = eval_transform(pixels, 224, -30.0, 120.0).cpu()
+    want = eval_transform(pixels.cpu(), 224, -30.0, 120.0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_lora_step_through_the_kernels_matches_plain_attention(card):
+    """One fine-tuning loss and backward of a LoRA ViT-S (bf16, non-zero B)
+    through kernel 1 and the dq/dkv pair against plain attention from one
+    state: loss within 1e-2 relative, every adapter gradient at cosine >=
+    0.99; exact launch counts (depth each) and no weight gradient of a
+    frozen layer."""
+    from dinox_torch.ops.augment import eval_transform
+    from dinox_torch.train.finetune import FinetuneConfig, finetune_loss, init_head
+    from dinox_torch.zoo.peft import apply_lora
+
+    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    base = LoadedModel(cfg, "cuda", generator=torch.Generator().manual_seed(0))
+    runs = []
+    for impl in ("pallas", "xla"):
+        model = LoadedModel(cfg.replace(attn_impl=impl), "cuda")
+        model.load_state_dict(base.state_dict())
+        lora = apply_lora(model, rank=8, dropout=0.0, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(2)
+            for m in lora.lora_layers():
+                m.lora_B.weight.copy_(torch.randn(m.lora_B.weight.shape, generator=g) * 0.02)
+        head = init_head(FinetuneConfig(), 384, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(3)
+        pixels = torch.randint(31000, 35000, (16, 512, 512, 3), generator=g, device="cuda").to(torch.uint16)
+        x = eval_transform(pixels, 224)
+        spacing = torch.rand((16, 3), generator=g, device="cuda") + 0.5
+        labels = (torch.arange(16, device="cuda") % 2).float()
+        counts = [flash_attention_packed, packed_attention_bwd_dq, packed_attention_bwd_dkv]
+        for fn in counts:
+            fn.launches = 0
+        lora.train()
+        loss = finetune_loss(lora, head, x, spacing, labels, "classification")
+        loss.backward()
+        torch.cuda.synchronize()
+        assert all(p.grad is None for k, p in lora.named_parameters() if ".lora_" not in k)
+        if impl == "pallas":
+            assert [fn.launches for fn in counts] == [cfg.depth] * 3
+        runs.append((float(loss.detach()), {k: p.grad.float() for k, p in lora.adapter_params().items()}))
+    (l1, g1), (l2, g2) = runs
+    assert abs(l1 - l2) <= 1e-2 * abs(l2)
+    for k in g1:
+        cos = torch.nn.functional.cosine_similarity(g1[k].flatten(), g2[k].flatten(), dim=0)
+        assert cos >= 0.99, (k, float(cos))

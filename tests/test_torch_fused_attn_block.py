@@ -182,7 +182,7 @@ def test_switches_keep_the_state_dict():
 
 def test_exclusions():
     """tanh GELU keeps the unfused MLP and xla attention the unfused
-    attention, silently; LoRA would keep both unfused (and is not ported)."""
+    attention, silently; LoRA keeps both unfused."""
     cfg = torch_config.ModelConfig(**dict(BASE, gelu_approx=True), **FUSED)
     assert takes_fused_attn(cfg) and not takes_fused_mlp(cfg)
     blk = PatchViT(cfg).blocks[0]
@@ -190,8 +190,8 @@ def test_exclusions():
     assert not takes_fused_attn(cfg.replace(attn_impl="xla"))
     lora = cfg.replace(gelu_approx=False, lora_rank=2)
     assert not takes_fused_attn(lora) and not takes_fused_mlp(lora)
-    with pytest.raises(NotImplementedError):
-        PatchViT(lora)
+    blk = PatchViT(lora).blocks[0]
+    assert not blk.fused_attn and not blk.fused_mlp
 
 
 def test_enable_fused_attn_at_run_time():

@@ -2,8 +2,9 @@
 loop, the data layer, the checkpoints, the pretraining CLI, the
 augmentation, the bench and the FLOP counts included), and not
 chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
-the serving or training path imports PIL, safetensors or huggingface_hub
-(the GPU machine has none of them). Checked on the source with an AST scan."""
+the serving, training, evaluation or fine-tuning path imports PIL,
+safetensors, huggingface_hub, scikit-learn or peft (the GPU machine has
+none of them). Checked on the source with an AST scan."""
 
 import ast
 from pathlib import Path
@@ -13,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "dinox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dinox_tpu", "PIL", "safetensors",
-             "huggingface_hub"}
+             "huggingface_hub", "sklearn", "peft"}
 
 
 def _imported_roots(tree):
@@ -46,4 +47,10 @@ def test_scan_sees_the_package():
             "dinox_torch/data/slice_cache.py", "dinox_torch/data/synthetic.py",
             "dinox_torch/data/prefetch.py", "dinox_torch/train/anomaly.py",
             "dinox_torch/train/checkpoint.py", "dinox_torch/train/trainer.py",
-            "dinox_torch/utils/logging.py", "dinox_torch/zoo/lineage.py"} <= names
+            "dinox_torch/utils/logging.py", "dinox_torch/zoo/lineage.py",
+            "dinox_torch/evaluation/linear.py", "dinox_torch/evaluation/metrics.py",
+            "dinox_torch/evaluation/embedder.py", "dinox_torch/train/run_export.py",
+            "dinox_torch/evaluate_panorgan.py", "dinox_torch/view_retrieval_eval.py",
+            "dinox_torch/check_checkpoint.py", "dinox_torch/bench_inference.py",
+            "dinox_torch/zoo/peft.py", "dinox_torch/train/finetune.py",
+            "dinox_torch/finetune_lora.py"} <= names

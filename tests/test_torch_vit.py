@@ -87,9 +87,11 @@ def test_embed_keeps_compute_dtype_and_token_order():
 
 
 def test_unported_options_raise():
-    for kw in (dict(lora_rank=4), dict(moe_experts=2)):
-        with pytest.raises(NotImplementedError):
-            PatchViT(torch_config.ModelConfig(**dict(BASE, **kw)))
+    # LoRA is ported (test_torch_lora_peft.py); MoE is not yet.
+    with pytest.raises(NotImplementedError):
+        PatchViT(torch_config.ModelConfig(**dict(BASE, moe_experts=2)))
+    with pytest.raises(ValueError):
+        PatchViT(torch_config.ModelConfig(**dict(BASE, lora_rank=4, lora_targets=("qkv", "norm1"))))
 
 
 def test_config_schema_matches_jax():
