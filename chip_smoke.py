@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of dinox_torch's serving and training paths, its
-head-major attention path, its pretraining CLI and its evaluation,
-inference-bench and LoRA fine-tuning CLIs (one CUDA card).
+head-major attention path, its pretraining CLI, its evaluation,
+inference-bench and LoRA fine-tuning CLIs, the CIFAR control and the
+DICOM/NIfTI preprocessing CLIs (one CUDA card).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -9,8 +10,9 @@ Run from the repository root:  python3 chip_smoke.py
 2. Builds every kernel under dinox_torch/ops/csrc with nvcc.
 3. Holds the packed attention forward kernel against its plain PyTorch
    version on the card at the shapes the serving path, the training path,
-   the inference bench (bs 64-512) and the JAX package's kernel check use,
-   and both forward kernels of the tile core
+   the inference bench (bs 64-512), the CIFAR control ((512/392/488, 69,
+   576, 6): N 69, hd 32) and the JAX package's kernel check use, each twice
+   with equal bits, and both forward kernels of the tile core
    attention_fwd_sm90.cuh (kernels 1 and 4) at the ragged edges of its
    tiling (N 1 to 1500, hd 32/64/88), each twice with equal bits.
 4. Makes a full-width ViT-S scale-aware backbone (bf16, seeded random
@@ -21,8 +23,9 @@ Run from the repository root:  python3 chip_smoke.py
    >= 0.999 against the same weights with plain attention) and that every
    forward went through the kernel (launches == depth x forwards).
 6. Holds the backward kernel pair (dq, dkv) against the plain backward at
-   seven shapes, the training shape, the LoRA fine-tuning step's (bs 32)
-   and the ViT-G one included, then both
+   eight shapes, each twice with equal bits, the training shape, the LoRA
+   fine-tuning step's (bs 32), the CIFAR step's (512, 69, 576, 6) and the
+   ViT-G one included, then both
    backward pairs of the tile core attention_bwd_sm90.cuh (kernels 2/3 and
    5) at the ragged edges of its tiling (N 1 to 1500, hd 32/64/88): each
    twice with equal bits, kernel 5 bit-equal to kernel 2.
@@ -131,6 +134,28 @@ Run from the repository root:  python3 chip_smoke.py
    samples/s beside bench_train_step(96). The kernels line gives kernels
    1, 2 and 6 eval_launches, bench_inference_launches and
    finetune_launches, and kernel 1 its inference_bench timing.
+19. Runs the CIFAR control (module 10's rest) at its published width (img
+   32, patch 4, dim 192, depth 6, 6 heads, 4 registers: N 69, hd 32; bf16)
+   on synthetic_cifar: one micro-step (bs 8) through the kernels against
+   plain attention (loss within 1e-2 relative, gradient cosine >= 0.99);
+   python -m dinox_torch.baseline_cifar10_pretrain --attn-impl pallas for
+   40 steps of bs 256 (exact launches per step: kernel 1 2 x depth, dq and
+   dkv depth; finite losses), the step's ms, samples/s and busy share;
+   baseline_cifar10_linear_probe (exit 0 or 2; kernel 1 depth x 12
+   forwards) with its CLS embeddings against plain attention (cosine >=
+   0.999) and baseline_cifar10_view_retrieval_eval (exit 0 or 2; 2 x depth
+   launches); kernel 1 and the pair timed at (512, 69, 576, 6) beside
+   SDPA, its backward and their bounds.
+20. Turns DICOM and NIfTI into training (module 8b): 4 DICOM series of 32
+   512^2 slices (write_dicom) and 2 NIfTI volumes (write_nifti) through
+   preprocess_dicom, preprocess_nifti, extract_dicom_spacing,
+   combine_indices, make_split_manifest, build_slice_cache and
+   validate_samples in this process (each exits 0, slices/s each, every PNG
+   equal to encode_hu16 of the written HU), then python -m
+   dinox_torch.pretrain over the combined index and its split manifest at
+   ViT-S bs32 for 5 steps (exact launches). The kernels line gives kernels
+   1 and 2 (dq, dkv) cifar_launches and preprocess_launches, and kernel 1
+   and the dq entry (the pair) their cifar timing.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -161,6 +186,9 @@ import torch
 import torch.nn.functional as F
 
 from dinox_torch import (
+    baseline_cifar10_linear_probe,
+    baseline_cifar10_pretrain,
+    baseline_cifar10_view_retrieval_eval,
     bench_inference,
     check_checkpoint,
     evaluate_panorgan,
@@ -171,9 +199,12 @@ from dinox_torch import (
     view_retrieval_eval,
 )
 from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
-from dinox_torch.data.hu import HU_SHIFT
+from dinox_torch.data.cifar import synthetic_cifar
+from dinox_torch.data.dicom import write_dicom
+from dinox_torch.data.hu import HU_SHIFT, encode_hu16
 from dinox_torch.data.index import IndexRow, load_index_rows, write_index_rows
-from dinox_torch.data.png16 import decoder_in_use, write_png16
+from dinox_torch.data.nifti import write_nifti
+from dinox_torch.data.png16 import decoder_in_use, read_png16, write_png16
 from dinox_torch.data.synthetic import PROFILES_V2, draw_spacing, synth_series_np
 from dinox_torch.evaluate_panorgan import load_any_model
 from dinox_torch.evaluation.embedder import _load_batches, embed_rows
@@ -184,6 +215,7 @@ from dinox_torch.ops import flash_attention as fa
 from dinox_torch.ops import fused_attn_block as fab
 from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views, eval_transform
+from dinox_torch.ops.augment_rgb import RgbAugConfig, augment_rgb_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
 from dinox_torch.train.finetune import (
     FinetuneConfig,
@@ -193,8 +225,18 @@ from dinox_torch.train.finetune import (
     init_head,
     make_finetune_optimizer,
 )
+from dinox_torch.preprocessing import (
+    build_slice_cache,
+    combine_indices,
+    extract_dicom_spacing,
+    make_split_manifest,
+    preprocess_dicom,
+    preprocess_nifti,
+    validate_samples,
+)
+from dinox_torch.train.run_export import load_backbone_from_run
 from dinox_torch.train.state import TrainConfig, create_train_state
-from dinox_torch.train.step import micro_loss_and_grads
+from dinox_torch.train.step import build_train_step, micro_loss_and_grads
 from dinox_torch.utils.flops import card_peaks, mfu
 from dinox_torch.utils.roofline import (
     attention_bwd_work,
@@ -212,26 +254,42 @@ from dinox_torch.zoo.hub import LoadedModel, export_hub_checkpoint
 from dinox_torch.zoo.peft import apply_lora, load_adapter, merge_adapter
 
 SEED = 0
+# The CIFAR control (img 32, patch 4, 4 registers: N = 69; dim 192 over 6
+# heads: hd 32): its training step's 2 x 256 views, and the linear probe's
+# batches of 512 with its tails (5000 = 9 x 512 + 392 train and 1000 = 512 +
+# 488 test images).
+CIFAR_SHAPE = (512, 69, 3 * 192, 6)
+CIFAR_FWD_SHAPES = [CIFAR_SHAPE, (392, 69, 3 * 192, 6), (488, 69, 3 * 192, 6)]
+CIFAR_STEPS, CIFAR_BATCH, CIFAR_WINDOW = 40, 256, 50
+CIFAR_ARGS = ["--attn-impl", "pallas", "--max-steps", str(CIFAR_STEPS), "--batch-size",
+              str(CIFAR_BATCH), "--warmup-steps", "10", "--ckpt-every", "20", "--log-json"]
+# The DICOM/NIfTI leg: DICOM series and NIfTI volumes of 512^2 slices, then
+# 5 pretraining steps of ViT-S bs32 over their PNGs.
+DICOM_SERIES, NIFTI_VOLUMES, SERIES_SLICES, PRE_STEPS, PRE_BATCH = 4, 2, 32, 5, 32
 BUCKETS = [1, 8, 32]
 TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py --check)
 # (b, n, 3*dim, heads): the kernel-check shapes (ViT-S, ViT-G hd 88), the
 # serving bucket-32 shape, the MAE decoder's hd 32, the ViT-S training
 # shape (2 x 96 views) that the unfused training step gives it, the
-# inference bench's largest batch (3072 (batch, head) pairs) and its other
-# three batch sizes (the evaluation's bs 64 among them).
+# inference bench's largest batch (3072 (batch, head) pairs), its other
+# three batch sizes (the evaluation's bs 64 among them) and the CIFAR
+# control's three.
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
                 (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6), (512, 261, 3 * 384, 6),
-                (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6)]
+                (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6),
+                *CIFAR_FWD_SHAPES]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
 BWD_TOL, BWD_REL = 0.25, 2e-2
 # (b, n, 3*dim, heads): the check shape, the ViT-S training shape (2 x 96
 # views), ViT-G (hd 88, TPU kernel 3's shape), hd 32, a short ragged N, an
-# N past the TPU kernel's 1024 and the LoRA fine-tuning step's bs 32.
+# N past the TPU kernel's 1024, the LoRA fine-tuning step's bs 32, the
+# DICOM/NIfTI leg's pretraining step (2 x 32 views) and the CIFAR step's
+# 512 views of 69 tokens at hd 32.
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6),
-              (32, 261, 3 * 384, 6)]
+              (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE]
 TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
 # The pretraining CLI at full width and depth: ViT-S scale-aware bs96, tanh,
@@ -398,18 +456,20 @@ def what_sets_the_time(name: str, occ: dict[str, int], where: str, ms: float, de
 
 
 def check_kernels() -> tuple[float, float]:
-    """Kernel 1 at CHECK_SHAPES, then kernels 1 and 4 at FWD_EDGES, each edge
-    run twice for equal bits. Returns the worst error of each kernel."""
+    """Kernel 1 at CHECK_SHAPES, then kernels 1 and 4 at FWD_EDGES, each
+    shape and edge run twice for equal bits. Returns the worst error of each
+    kernel."""
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
     for b, n, three_dim, heads in CHECK_SHAPES:
         qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
-        got = flash_attention_packed(qkv, heads)
+        got, again = (flash_attention_packed(qkv, heads) for _ in range(2))
         torch.cuda.synchronize()
         err = (got.float() - packed_attention_reference(qkv, heads).float()).abs().max().item()
+        same = torch.equal(got, again)
         print(f"kernel check packed_attention b={b} n={n} dim={three_dim // 3} heads={heads}: "
-              f"max_abs_err={err:.3e} (tol {TOL})", flush=True)
-        if not np.isfinite(err) or err >= TOL:
+              f"max_abs_err={err:.3e} (tol {TOL}); two runs bit-equal: {same}", flush=True)
+        if not np.isfinite(err) or err >= TOL or not same:
             fail(f"packed_attention disagrees with its plain version at {(b, n, three_dim, heads)}")
         worst = max(worst, err)
     worst_mha = 0.0
@@ -452,15 +512,16 @@ def check_embeddings(resp: dict, count: int, dim: int) -> np.ndarray:
 
 
 def check_backward() -> tuple[float, float]:
-    """The dq + dkv pair against the plain backward at BWD_SHAPES. Returns the
-    worst error of the dq slots and of the dk/dv slots."""
+    """The dq + dkv pair against the plain backward at BWD_SHAPES, each shape
+    twice for equal bits. Returns the worst error of the dq slots and of the
+    dk/dv slots."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst_dq = worst_dkv = 0.0
     for b, n, three_dim, heads in BWD_SHAPES:
         dim = three_dim // 3
         qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
         do = torch.randn((b, n, dim), generator=g, device="cuda").to(torch.bfloat16)
-        got = fa.packed_attention_backward(qkv, do, heads)
+        got, again = (fa.packed_attention_backward(qkv, do, heads) for _ in range(2))
         torch.cuda.synchronize()
         want = fa.packed_attention_backward_reference(qkv, do, heads).float()
         diff = (got.float() - want).abs()
@@ -468,11 +529,12 @@ def check_backward() -> tuple[float, float]:
         err = max(err_dq, err_dkv)
         rel = err / want.abs().max().item()
         bit_equal = (got.float() == want).float().mean().item()
+        same = torch.equal(got, again)
         print(f"kernel check packed_attention backward b={b} n={n} dim={dim} heads={heads}: "
               f"max_abs_err={err:.3e} (tol {BWD_TOL}; dq {err_dq:.3e}, dk/dv {err_dkv:.3e}), "
-              f"max_abs_err/max|want|={rel:.3e} (tol {BWD_REL}), bit-equal {bit_equal:.5f}",
-              flush=True)
-        if not np.isfinite(err) or err >= BWD_TOL or rel >= BWD_REL:
+              f"max_abs_err/max|want|={rel:.3e} (tol {BWD_REL}), bit-equal {bit_equal:.5f}; two "
+              f"runs bit-equal: {same}", flush=True)
+        if not np.isfinite(err) or err >= BWD_TOL or rel >= BWD_REL or not same:
             fail(f"the backward pair disagrees with its plain version at {(b, n, three_dim, heads)}")
         worst_dq, worst_dkv = max(worst_dq, err_dq), max(worst_dkv, err_dkv)
     return worst_dq, worst_dkv
@@ -714,6 +776,14 @@ def check_step(models: tuple, label: str) -> None:
                              device="cuda")
     spacing = torch.as_tensor(rng.uniform(0.4, 3.0, (8, 3)).astype(np.float32), device="cuda")
     views = augment_views(pixels, torch.Generator().manual_seed(SEED), cfgs[0].aug)
+    compare_micro_steps(states, cfgs, views, spacing, "ViT-S scale-aware bs8, " + label)
+
+
+def compare_micro_steps(states: list, cfgs: list, views: torch.Tensor, spacing: torch.Tensor,
+                        label: str) -> None:
+    """micro_loss_and_grads of two states (the one under test first) on the
+    same (n_views, B, S, S, 3) views: the losses within 1e-2 relative and
+    every gradient that is not zero in both at cosine >= 0.99."""
     batch = views.reshape((-1,) + tuple(views.shape[2:]))
     (g_k, _, m_k), (g_p, _, m_p) = (micro_loss_and_grads(st, st.center, batch, spacing, cfg)
                                     for st, cfg in zip(states, cfgs))
@@ -727,7 +797,7 @@ def check_step(models: tuple, label: str) -> None:
             continue
         cos[name] = F.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0).item()
     worst = min(cos, key=cos.get)
-    print(f"training micro-step, ViT-S scale-aware bs8, {label}: loss "
+    print(f"training micro-step, {label}: loss "
           f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel:.2e}, tol 1e-2); gradient cosine min "
           f"{cos[worst]:.6f} ({worst}) over {len(cos)} tensors, {len(skipped)} skipped as zero "
           f"in both {skipped}", flush=True)
@@ -1723,6 +1793,234 @@ def finetune_path(tmp: Path, bench_rate: float) -> dict[str, int]:
     return total
 
 
+def cifar_model(impl: str):
+    """The CIFAR control's ModelConfig as baseline_cifar10_pretrain builds it on the card."""
+    args = baseline_cifar10_pretrain.parse_args(["--run-dir", "unused", "--attn-impl", impl])
+    return baseline_cifar10_pretrain.cifar_model_config(args, torch.device("cuda"))
+
+
+def cifar_path(tmp: Path, peaks: tuple[float, float]) -> tuple[dict[str, int], dict, dict]:
+    """The CIFAR control at its published width (ViT img 32, patch 4, dim
+    192, depth 6, 6 heads, 4 registers; N = 69, hd 32; bf16): one micro-step
+    (bs 8) through the kernels against plain attention; python -m
+    dinox_torch.baseline_cifar10_pretrain --attn-impl pallas for 40 steps of
+    bs 256 on synthetic_cifar (exact launches per step, finite losses), the
+    step's ms, samples/s and busy share; the linear probe (exit 0 or 2,
+    launches depth x 12 forwards) and its CLS embeddings against plain
+    attention (cosine >= 0.999); the view retrieval (exit 0 or 2, launches 2
+    x depth); kernel 1 and the pair timed at (512, 69, 576, 6). Returns the
+    three CLIs' launches and the two timings."""
+    depth = cifar_model("pallas").depth
+    cfgs = [TrainConfig(model=cifar_model(impl), img_size=32, batch_size=8, koleo_weight=0.1)
+            for impl in ("pallas", "xla")]
+    states = [create_train_state(cfg, seed=SEED) for cfg in cfgs]
+    for st in states[1:]:
+        st.student.load_state_dict(states[0].student.state_dict())
+        st.teacher.load_state_dict(states[0].teacher.state_dict())
+    x_train, _, x_test, _ = synthetic_cifar()
+    pixels = torch.as_tensor(x_train[:8], device="cuda")
+    views = augment_rgb_views(pixels, torch.Generator().manual_seed(SEED), RgbAugConfig())
+    compare_micro_steps(states, cfgs, views, torch.ones((8, 3), device="cuda"),
+                        "CIFAR ViT (N 69, hd 32) bs8, kernels vs plain attention")
+    del states
+
+    run = tmp / "cifar"
+    total = dict.fromkeys(COUNTERS, 0)
+    reset_launch_counts()
+    wall, _ = run_cli(CIFAR_ARGS + ["--run-dir", str(run)], "--attn-impl pallas",
+                      baseline_cifar10_pretrain.main)
+    counts = launch_counts()
+    want = want_counts(packed_attention=CIFAR_STEPS * 2 * depth,
+                       packed_attention_bwd_dq=CIFAR_STEPS * depth,
+                       packed_attention_bwd_dkv=CIFAR_STEPS * depth)
+    metrics = read_metrics(run)
+    losses = [metrics[k]["loss"] for k in sorted(metrics)]
+    rates = {k: round(v["samples_per_s"], 2) for k, v in metrics.items() if "samples_per_s" in v}
+    print(f"baseline_cifar10_pretrain --attn-impl pallas: {CIFAR_STEPS} steps of bs{CIFAR_BATCH} "
+          f"in {wall:.1f} s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; the loop's samples/s at "
+          f"its metric drains {rates}; launches {counts} (want {want}: forward 2 x depth, each "
+          f"backward kernel depth, per step)", flush=True)
+    if sorted(metrics) != list(range(1, CIFAR_STEPS + 1)) or not np.isfinite(losses).all():
+        fail("the CIFAR pretraining run did not log a finite loss at every step")
+    if counts != want:
+        fail("the CIFAR pretraining run did not run every attention through the kernels exactly once")
+    for k in total:
+        total[k] += counts[k]
+
+    # The step alone, on the run's config: host-clock rate over two windows
+    # of CIFAR_WINDOW steps (each ~2 s or more), their spread, and the busy
+    # share against their mean.
+    cfg = TrainConfig(model=cifar_model("pallas"), img_size=32, batch_size=CIFAR_BATCH,
+                      warmup_steps=10, max_steps=3 + 2 * CIFAR_WINDOW, koleo_weight=0.1)
+    state = create_train_state(cfg, seed=SEED)
+    rgb_cfg = RgbAugConfig()
+    step = build_train_step(cfg, augment_fn=lambda px, g, _: augment_rgb_views(px, g, rgb_cfg))
+    px = torch.as_tensor(x_train[:CIFAR_BATCH][None], device="cuda")
+    ones = torch.ones((1, CIFAR_BATCH, 3), device="cuda")
+    for _ in range(3):
+        step(state, px, ones)
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in range(CIFAR_WINDOW):
+            step(state, px, ones)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / CIFAR_WINDOW * 1e3)
+    step_ms = sum(windows) / 2
+    print(f"CIFAR training step (bs{CIFAR_BATCH}, RGB augmentation + student and teacher forward "
+          f"+ backward + AdamW + EMA): {windows[0]:.2f} / {windows[1]:.2f} ms, "
+          f"{CIFAR_BATCH / windows[0] * 1e3:.2f} / {CIFAR_BATCH / windows[1] * 1e3:.2f} samples/s "
+          f"(host clock, two windows of {CIFAR_WINDOW} steps, spread "
+          f"{100 * abs(windows[0] - windows[1]) / min(windows):.1f}%)", flush=True)
+    print_device_profile(lambda: step(state, px, ones), step_ms, f"CIFAR training step bs{CIFAR_BATCH}",
+                         "one step, against the windows' mean")
+    del state, step
+
+    reset_launch_counts()
+    _, out = run_cli(["--checkpoint", str(run), "--out", str(tmp / "probe.json")], "on the CIFAR run",
+                     baseline_cifar10_linear_probe.main, (0, 2))
+    counts = launch_counts()
+    probe = json.loads((tmp / "probe.json").read_text())
+    forwards = -(-probe["n_train"] // 512) + -(-probe["n_test"] // 512)
+    print(f"baseline_cifar10_linear_probe: top1 {probe['top1']:.4f} (gate {probe['pass_threshold']} "
+          f"on real CIFAR; synthetic here), {probe['n_train']} + {probe['n_test']} images in "
+          f"{forwards} forwards; launches {counts} (want kernel 1 depth x forwards = "
+          f"{depth * forwards})", flush=True)
+    if (forwards != 12 or counts != want_counts(packed_attention=depth * forwards)
+            or ("PASS" if probe["passed"] else "FAIL") not in out):
+        fail("the CIFAR linear probe did not run as expected")
+    for k in total:
+        total[k] += counts[k]
+
+    model = load_backbone_from_run(run, device="cuda")
+    ref = LoadedModel(model.cfg.replace(attn_impl="xla"), "cuda")
+    ref.load_state_dict(model.state_dict())
+    got, want_e = (baseline_cifar10_linear_probe.embed(m, x_test, 512, torch.device("cuda"))
+                   for m in (model, ref))
+    cos = cls_cosine(got, want_e)
+    print(f"CIFAR probe CLS embeddings through kernel 1 vs plain attention: cosine min "
+          f"{cos.min():.6f} over {len(cos)} test images", flush=True)
+    if cos.min() < 0.999:
+        fail("the CIFAR probe's embeddings through kernel 1 disagree with plain attention")
+
+    reset_launch_counts()
+    _, out = run_cli(["--checkpoint", str(run), "--out", str(tmp / "cifar_vr.json")],
+                     "on the CIFAR run", baseline_cifar10_view_retrieval_eval.main, (0, 2))
+    counts = launch_counts()
+    vr = json.loads((tmp / "cifar_vr.json").read_text())
+    print(f"baseline_cifar10_view_retrieval_eval: {vr}; launches {counts} (want kernel 1 2 x depth)",
+          flush=True)
+    if vr["n"] != 512 or not np.isfinite(vr["top1"]) or counts != want_counts(packed_attention=2 * depth):
+        fail("the CIFAR view retrieval did not run as expected")
+    for k in total:
+        total[k] += counts[k]
+
+    fwd = time_forward(peaks, CIFAR_SHAPE, "CIFAR step", SEED + 7)
+    bwd = time_backward(peaks, CIFAR_SHAPE)
+    return total, fwd, bwd
+
+
+def preprocess_path(tmp: Path) -> dict[str, int]:
+    """DICOM and NIfTI to training (module 8b): DICOM_SERIES series of
+    SERIES_SLICES 512^2 slices written with write_dicom (out of z order, a
+    SliceThickness that is not the z step) and NIFTI_VOLUMES volumes with write_nifti, then
+    preprocess_dicom, preprocess_nifti, extract_dicom_spacing,
+    combine_indices, make_split_manifest, build_slice_cache and
+    validate_samples in this process (each exits 0; slices/s each; every PNG
+    decodes to encode_hu16 of the written HU), then python -m
+    dinox_torch.pretrain over the combined index and manifest at ViT-S bs32
+    for PRE_STEPS steps (exact launches). Returns the pretraining run's
+    launches."""
+    raw, nii, out = tmp / "raw", tmp / "nii", tmp / "processed"
+    written: dict[tuple[str, int], np.ndarray] = {}  # (series_dir, slice) -> HU
+
+    def dicom_series(s: int) -> None:
+        rng = np.random.default_rng([SEED, 100 + s])
+        prof = PROFILES_V2[s % len(PROFILES_V2)]
+        hu = np.clip(np.round(synth_series_np(prof, rng, SERIES_SLICES, 512)), -1000, 3000)
+        uid = f"1.2.826.{s}"
+        d = raw / "lidc" / uid.replace(".", "_")
+        d.mkdir(parents=True)
+        for k, z in enumerate(rng.permutation(SERIES_SLICES)):
+            write_dicom(d / f"{k:03d}.dcm", (hu[z] + 1024).astype(np.int16), series_uid=uid,
+                        patient_id=f"P{s}", pixel_spacing=(0.7, 0.7), slice_thickness=2.0,
+                        position_z=1.25 * z, rescale_slope=1.0, rescale_intercept=-1024.0)
+            written[(f"lidc/{uid.replace('.', '_')}", int(z))] = hu[z]
+
+    def nifti_volume(v: int) -> None:
+        rng = np.random.default_rng([SEED, 200 + v])
+        hu = synth_series_np(PROFILES_V2[v], rng, SERIES_SLICES, 512).astype(np.float32)
+        write_nifti(nii / f"vol_{v:03d}.nii.gz", np.ascontiguousarray(hu.transpose(2, 1, 0)),
+                    spacing=(0.75, 0.75, 2.5))
+        for z in range(SERIES_SLICES):
+            written[(f"msd/vol_{v:03d}", z)] = np.clip(hu[z], -1000, 4000)
+
+    nii.mkdir()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(dicom_series, range(DICOM_SERIES)))
+        list(pool.map(nifti_volume, range(NIFTI_VOLUMES)))
+    print(f"wrote {DICOM_SERIES} DICOM series and {NIFTI_VOLUMES} NIfTI volumes of {SERIES_SLICES} "
+          f"512^2 slices in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    n_dicom, n_all = DICOM_SERIES * SERIES_SLICES, (DICOM_SERIES + NIFTI_VOLUMES) * SERIES_SLICES
+    dicom_index, nifti_index = out / "dicom" / "_index" / "index.csv", out / "nifti" / "_index" / "index.csv"
+    combined, manifest = out / "combined.csv", out / "split_manifest.json"
+    steps = [
+        (preprocess_dicom, ["--src", str(raw), "--out", str(out / "dicom"), "--dataset", "lidc"], n_dicom),
+        (preprocess_nifti, ["--src", str(nii), "--out", str(out / "nifti"), "--dataset", "msd"],
+         n_all - n_dicom),
+        (extract_dicom_spacing, ["--index", str(dicom_index), "--dicom-root", str(raw), "--out",
+                                 str(out / "dicom_spacing.csv")], n_dicom),
+        (combine_indices, [f"lidc={out / 'dicom_spacing.csv'}", f"msd={nifti_index}", "--out",
+                           str(combined)], n_all),
+        (make_split_manifest, ["--index", str(combined), "--out", str(manifest), "--val-fraction",
+                               "0.17"], n_all),
+        (build_slice_cache, ["--index-csv", str(combined), "--canvas", "512"], n_all),
+        (validate_samples, ["--index", str(combined), "--out", str(out / "qa"), "--n", "16"], 16),
+    ]
+    for module, argv, n in steps:
+        wall, _ = run_cli(argv, "", module.main)
+        print(f"python -m {module.__name__}: {n} slices in {wall:.3f} s = {n / wall:.1f} slices/s "
+              f"(host clock)", flush=True)
+    if {r.spacing_z for r in load_index_rows(dicom_index)} != {1.25}:
+        fail("preprocess_dicom did not take spacing_z from the median z step")
+
+    rows = load_index_rows(combined)
+    bad = 0
+    for r in rows:
+        key = (r.series_dir, r.slice_index)
+        bad += key not in written or not np.array_equal(read_png16(r.png_path), encode_hu16(written[key]))
+    spacing = {(r.dataset, r.spacing_x, r.spacing_y, r.spacing_z) for r in rows}
+    n_val = len(json.loads(manifest.read_text())["val"]["series_dir"])
+    print(f"combined index: {len(rows)} slices of {len({r.series_dir for r in rows})} series, "
+          f"spacings {sorted(spacing)}, {n_val} val series; PNGs not equal to encode_hu16 of the "
+          f"written HU: {bad}", flush=True)
+    if len(rows) != n_all or bad or spacing != {("lidc", 0.7, 0.7, 2.0), ("msd", 0.75, 0.75, 2.5)}:
+        fail("the preprocessing CLIs did not turn the DICOM and NIfTI files into their HU PNGs")
+
+    depth = MODEL_CONFIGS["vit-small"].depth
+    reset_launch_counts()
+    wall, text = run_cli(["--config", "vit-small", "--scale-aware", "--index-csv", str(combined),
+                          "--split-manifest", str(manifest), "--batch-size", str(PRE_BATCH),
+                          "--max-steps", str(PRE_STEPS), "--warmup-steps", "1", "--run-dir",
+                          str(tmp / "pre_run"), "--log-json", "--no-tensorboard"], "over the DICOM/NIfTI tree")
+    counts = launch_counts()
+    metrics = read_metrics(tmp / "pre_run")
+    losses = [metrics[k]["loss"] for k in sorted(metrics)]
+    want = want_counts(packed_attention=PRE_STEPS * 2 * depth, packed_attention_bwd_dq=PRE_STEPS * depth,
+                       packed_attention_bwd_dkv=PRE_STEPS * depth)
+    print(f"pretrain over the preprocessed tree ({n_all - SERIES_SLICES * n_val} training slices): "
+          f"{PRE_STEPS} steps of ViT-S bs{PRE_BATCH} in {wall:.1f} s, losses {losses}; launches "
+          f"{counts} (want {want})", flush=True)
+    if (sorted(metrics) != list(range(1, PRE_STEPS + 1)) or not np.isfinite(losses).all()
+            or counts != want or "decoded-slice cache" not in text):
+        fail("pretraining over the preprocessed DICOM/NIfTI tree did not run as expected")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -1873,10 +2171,19 @@ def main() -> int:
         infer_counts, infer_fwd = inference_path(peaks)
         finetune_counts = finetune_path(tmp, bench_rate)
 
+    # -- the CIFAR control (module 10's rest) and DICOM/NIfTI to training
+    # (module 8b) --
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cifar_counts, cifar_fwd, cifar_bwd = cifar_path(tmp, peaks)
+        preprocess_counts = preprocess_path(tmp)
+
     def later_paths(name: str) -> dict[str, int]:
         return {"eval_launches": eval_counts[name],
                 "bench_inference_launches": infer_counts.get(name, 0),
-                "finetune_launches": finetune_counts[name]}
+                "finetune_launches": finetune_counts[name],
+                "cifar_launches": cifar_counts[name],
+                "preprocess_launches": preprocess_counts[name]}
 
     kernels = [{
         "name": "packed_attention",
@@ -1901,6 +2208,9 @@ def main() -> int:
                             "plain_ms": infer_fwd["plain_ms"], "bound_ms": infer_fwd["bound"][0],
                             "bound_by": infer_fwd["bound"][1], "library_ms": infer_fwd["library_ms"],
                             "device_ms": infer_fwd["device_ms"]},
+        "cifar": {"shape": cifar_fwd["shape"], "ms": cifar_fwd["ms"], "plain_ms": cifar_fwd["plain_ms"],
+                  "bound_ms": cifar_fwd["bound"][0], "bound_by": cifar_fwd["bound"][1],
+                  "library_ms": cifar_fwd["library_ms"], "device_ms": cifar_fwd["device_ms"]},
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -1924,6 +2234,12 @@ def main() -> int:
             "pretrain_launches": pretrain_counts[name],
             **later_paths(name),
         })
+        if part == "dq":  # the pair at the CIFAR shape: time, bound and SDPA's backward
+            c = cifar_bwd["dq"]
+            kernels[-1]["cifar"] = {"shape": list(CIFAR_SHAPE), "ms": c["ms"], "device_ms": c["device_ms"],
+                                    "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                                    "bound_by": c["bound"][1], "library_ms": c["library_ms"],
+                                    "library_device_ms": c["library_device_ms"]}
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
          fused["attn_training"], fused_counts["fused_attn_block"]),

@@ -41,7 +41,9 @@ rounding points:
   is kernel 1 forward and kernels 2/3 backward.
 * ``use_grad_checkpoint`` recomputes each block in the backward
   (``torch.utils.checkpoint``), only in training mode, like the JAX
-  package's ``nn.remat`` under ``train=True``.
+  package's ``nn.remat`` under ``train=True``. The recomputation replays
+  the LoRA dropout masks of the forward (the LoRA generators' states are
+  noted per block and set back), as ``nn.remat`` replays its flax rng.
 
 :class:`DinoStudentTeacher` adds the DINO head on CLS; its ``state_dict()``
 keys are ``backbone.*``, ``head.0.*`` and ``head.2.*``, the keys of
@@ -50,6 +52,7 @@ keys are ``backbone.*``, ``head.0.*`` and ``head.2.*``, the keys of
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -359,8 +362,15 @@ class PatchViT(nn.Module):
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         remat = self.cfg.use_grad_checkpoint and self.training and torch.is_grad_enabled()
+        generators = list({id(m.generator): m.generator for m in self.lora_layers()
+                           if m.generator is not None}.values()) if remat else []
         for blk in self.blocks:
-            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, x, use_reentrant=False,
+                    context_fn=lambda: _replay_generators(generators))
+            else:
+                x = blk(x)
         return x
 
     def enable_fused_attn(self) -> None:
@@ -376,6 +386,33 @@ class PatchViT(nn.Module):
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.run_final_norm(self.run_blocks(self.embed(x, spacing)))
+
+
+def _replay_generators(generators: list[torch.Generator]):
+    """``torch.utils.checkpoint`` contexts that make a block's recomputation
+    draw the LoRA dropout masks its forward drew: the forward context notes
+    each generator's state; the recomputation context sets it back, then
+    restores the state the generator had before the recomputation, so the
+    draws after it are those of a run without checkpointing."""
+    states: list[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward():
+        states[:] = [g.get_state() for g in generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in generators]
+        for g, s in zip(generators, states):
+            g.set_state(s)
+        try:
+            yield
+        finally:
+            for g, s in zip(generators, now):
+                g.set_state(s)
+
+    return forward(), recompute()
 
 
 class DinoHead(nn.Sequential):

@@ -24,6 +24,9 @@ BF16, F32 = 2, 4
 # (b, n, dim, heads) of the head-major kernel's bring-up gate: q, k, v of
 # (8, 8, 1024, 64).
 VALIDATE_SHAPE = (8, 1024, 512, 8)
+# The CIFAR control's attention, (b, n, dim, heads): 2 x 256 views of 69
+# tokens (img 32, patch 4, 4 registers), dim 192 over 6 heads (hd 32).
+CIFAR_SHAPE = (512, 69, 192, 6)
 # Row chunks of kernel 8's weights launch at the training shape on a 132-SM
 # H100 (36 tiles, one CTA per SM; ops.fused_mlp.weight_chunks picks them on
 # the card).
@@ -173,10 +176,16 @@ def main(argv: list[str] | None = None) -> int:
             ms, by = bound_ms(moved, flops, peaks)
             print(f"{num}  {'  launch ' + part:48s} {str((rows, dim, hidden)):22s} "
                   f"{moved / 1e6:9.1f} MB {flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
-    moved, flops = attention_fwd_work(*VALIDATE_SHAPE)
-    ms, by = bound_ms(moved, flops, peaks)
-    print(f"4  {'_mha_kernel at the validate shape':48s} {str(VALIDATE_SHAPE):22s} "
-          f"{moved / 1e6:9.1f} MB {flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
+    for num, label, shape, work in ((4, "_mha_kernel at the validate shape", VALIDATE_SHAPE,
+                                     attention_fwd_work),
+                                    (1, "_packed_kernel at the CIFAR shape", CIFAR_SHAPE,
+                                     attention_fwd_work),
+                                    (2, "_packed_bwd_kernel at the CIFAR shape", CIFAR_SHAPE,
+                                     attention_bwd_work)):
+        moved, flops = work(*shape)
+        ms, by = bound_ms(moved, flops, peaks)
+        print(f"{num}  {label:48s} {str(shape):22s} "
+              f"{moved / 1e6:9.1f} MB {flops / 1e9:8.2f} GFLOP  bound {ms:.4f} ms ({by})")
     return 0
 
 

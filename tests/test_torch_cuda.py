@@ -11,7 +11,10 @@ the ragged edges of their tiling, with equal bits on two runs and no spills;
 the pretraining loop's device side: the prefetcher's staged batches and
 the async checkpoint's snapshot under in-place updates; and evaluation and
 fine-tuning: the eval transform on the card, and a LoRA loss and backward
-of ViT-S through kernel 1 and the dq/dkv pair against plain attention.
+of ViT-S through kernel 1 and the dq/dkv pair against plain attention; the
+CIFAR control's RGB views on the card against the CPU and kernel 1 and the
+pair at its (512, 69, 576, 6); LoRA dropout replayed under gradient
+checkpointing with a generator on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -804,3 +807,89 @@ def test_lora_step_through_the_kernels_matches_plain_attention(card):
     for k in g1:
         cos = torch.nn.functional.cosine_similarity(g1[k].flatten(), g2[k].flatten(), dim=0)
         assert cos >= 0.99, (k, float(cos))
+
+
+# -- the CIFAR control and LoRA under gradient checkpointing on the card -------
+
+
+def test_rgb_views_on_the_card_match_the_cpu(card):
+    """augment_rgb_views on the card against the CPU from one generator seed:
+    the draws are the CPU generator's on both and the colour products
+    weighted channel sums, so they differ only by float32 rounding in
+    another order (cuBLAS's resample sums and the per-image mean), which the
+    jitter's factors (up to 1.4 x 1.4 x 1.2, the YIQ rows up to 1.7) and the
+    normalisation (1 / 0.24) amplify: within 5e-5. The first stage alone,
+    _crop_resize on the same boxes, is held within 1e-5 in [0, 1] pixel
+    units (two float32 passes of at most 32 taps each: about 64 roundings of
+    2^-24 on weights whose absolute sums are near 1); the boxes drawn on
+    each device and the jitter alone on the same crops are printed beside
+    it, so the reading shows where the error enters."""
+    from dinox_torch.data.cifar import synthetic_cifar
+    from dinox_torch.ops.augment import _crop_resize, _sample_crop_box
+    from dinox_torch.ops.augment_rgb import (_ATTEMPTS, AREA, ASPECT, DRAWS, JITTER, LEFT, TOP,
+                                             RgbAugConfig, _color_jitter, augment_rgb_views)
+
+    pixels = torch.from_numpy(synthetic_cifar(64, 1, seed=2)[0])
+    cfg = RgbAugConfig()
+    u = torch.rand((128, DRAWS), generator=torch.Generator().manual_seed(5))
+    images = (pixels.to(torch.float32) / 255.0).repeat(2, 1, 1, 1)
+    boxes = [_sample_crop_box(ud[:, AREA:AREA + _ATTEMPTS], ud[:, ASPECT:ASPECT + _ATTEMPTS],
+                              ud[:, TOP], ud[:, LEFT], 32, 32, cfg.crop_cfg) for ud in (u.cuda(), u)]
+    box_err = max((a.cpu() - b).abs().max().item() for a, b in zip(*boxes))
+    box = boxes[1]
+    crops = [_crop_resize(images.to(d), *(b.to(d) for b in box), 32).cpu() for d in ("cuda", "cpu")]
+    crop_err = (crops[0] - crops[1]).abs().max().item()
+    x = crops[1].clamp(0.0, 1.0)
+    jit = [_color_jitter(x.to(d), u[:, JITTER:JITTER + 4].to(d), cfg).cpu() for d in ("cuda", "cpu")]
+    jitter_err = (jit[0] - jit[1]).abs().max().item()
+    got = augment_rgb_views(pixels.cuda(), torch.Generator().manual_seed(5)).cpu()
+    want = augment_rgb_views(pixels, torch.Generator().manual_seed(5))
+    reading = (f"card vs CPU max abs error: crop boxes {box_err:.3e} px, _crop_resize on equal "
+               f"boxes {crop_err:.3e}, _color_jitter on equal "
+               f"crops {jitter_err:.3e}, the views {(got - want).abs().max().item():.3e}")
+    print(reading)
+    assert crop_err <= 1e-5, reading
+    torch.testing.assert_close(got, want, atol=5e-5, rtol=0, msg=reading)
+
+
+def test_packed_pair_at_the_cifar_shape(card):
+    """Kernel 1 and the dq/dkv pair at the CIFAR step's (512, 69, 576, 6):
+    N = one 64-row tile and a 5-key tail, hd 32; within the JAX check's
+    tolerances, twice with equal bits."""
+    qkv = torch.randn((512, 69, 576), generator=card, device="cuda").to(torch.bfloat16)
+    do = torch.randn((512, 69, 192), generator=card, device="cuda").to(torch.bfloat16)
+    out = [flash_attention_packed(qkv, 6) for _ in range(2)]
+    grads = [packed_attention_backward(qkv, do, 6) for _ in range(2)]
+    assert torch.equal(*out) and torch.equal(*grads)
+    torch.testing.assert_close(out[0].float(), packed_attention_reference(qkv, 6).float(), atol=TOL, rtol=0)
+    want = packed_attention_backward_reference(qkv, do, 6).float()
+    assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_lora_dropout_replays_under_grad_checkpoint_on_the_card(card):
+    """LoRA dropout 0.5 with a generator on the card: the factors' gradients
+    and the generator's end state equal with and without
+    use_grad_checkpoint (f32, plain attention)."""
+    from dinox_torch.models.config import ModelConfig
+    from dinox_torch.models.vit import PatchViT
+
+    kw = dict(name="vit-tiny", img_size=32, patch=16, dim=192, depth=2, heads=3, out_dim=16,
+              dtype="float32", attn_impl="xla", lora_rank=4, lora_alpha=8.0, lora_dropout=0.5)
+    x = torch.randn((3, 32, 32, 3), generator=card, device="cuda")
+    w = 1e-3 * torch.randn((3, 9, 192), generator=card, device="cuda")
+    grads, ends = [], []
+    for remat in (False, True):
+        model = PatchViT(ModelConfig(**kw, use_grad_checkpoint=remat), device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for m in model.lora_layers():
+                m.lora_B.weight.normal_(0.0, 0.05, generator=torch.Generator(device="cuda").manual_seed(1))
+        model.train()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        model.set_lora_generator(gen)
+        (model(x) * w).sum().backward()
+        grads.append({k: p.grad for k, p in model.named_parameters() if ".lora_" in k})
+        ends.append(gen.get_state())
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], atol=1e-6, rtol=0, msg=k)
+    assert torch.equal(ends[0], ends[1])

@@ -3,8 +3,9 @@ loop, the data layer, the checkpoints, the pretraining CLI, the
 augmentation, the bench and the FLOP counts included), and not
 chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
 the serving, training, evaluation or fine-tuning path imports PIL,
-safetensors, huggingface_hub, scikit-learn or peft (the GPU machine has
-none of them). Checked on the source with an AST scan."""
+safetensors, huggingface_hub, scikit-learn, peft, pydicom, nibabel or
+pylidc (the GPU machine has none of them): the CIFAR control and the
+DICOM/NIfTI readers and preprocessing CLIs included. Checked on the source with an AST scan."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "dinox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dinox_tpu", "PIL", "safetensors",
-             "huggingface_hub", "sklearn", "peft"}
+             "huggingface_hub", "sklearn", "peft", "pydicom", "nibabel", "pylidc"}
 
 
 def _imported_roots(tree):
@@ -53,4 +54,12 @@ def test_scan_sees_the_package():
             "dinox_torch/evaluate_panorgan.py", "dinox_torch/view_retrieval_eval.py",
             "dinox_torch/check_checkpoint.py", "dinox_torch/bench_inference.py",
             "dinox_torch/zoo/peft.py", "dinox_torch/train/finetune.py",
-            "dinox_torch/finetune_lora.py"} <= names
+            "dinox_torch/finetune_lora.py", "dinox_torch/ops/augment_rgb.py",
+            "dinox_torch/data/cifar.py", "dinox_torch/baseline_cifar10_pretrain.py",
+            "dinox_torch/baseline_cifar10_linear_probe.py",
+            "dinox_torch/baseline_cifar10_view_retrieval_eval.py", "dinox_torch/data/hu.py",
+            "dinox_torch/data/dicom.py", "dinox_torch/data/nifti.py", "dinox_torch/data/lidc.py",
+            *(f"dinox_torch/preprocessing/{m}.py" for m in (
+                "make_synthetic_data", "preprocess_dicom", "preprocess_nifti",
+                "extract_dicom_spacing", "combine_indices", "make_split_manifest",
+                "build_slice_cache", "validate_samples", "extract_lidc_malignancy"))} <= names

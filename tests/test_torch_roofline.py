@@ -6,8 +6,10 @@ import pytest
 
 from dinox_torch.utils.flops import card_peaks
 from dinox_torch.utils.roofline import (
+    CIFAR_SHAPE,
     MLP_WEIGHT_CHUNKS,
     VALIDATE_SHAPE,
+    attention_bwd_work,
     attention_fwd_work,
     bound_ms,
     fused_attn_parts_work,
@@ -129,3 +131,15 @@ def test_kernel_8_parts_sum_to_the_fused_products_and_more_bytes():
     grads = 4 * 2 * 384 * 1536
     assert more["weights"][0] - parts["weights"][0] == grads
     assert more["reduce"][0] - parts["reduce"][0] == grads
+
+
+def test_packed_pair_at_the_cifar_shape():
+    """(512, 69, 192, 6): the forward moves qkv in and out out, 54.3 MB
+    against 1.87 GFLOP, and the backward qkv, dO and dqkv, 95.0 MB against
+    4.68 GFLOP: both bound by bytes on the H100."""
+    peaks = card_peaks("NVIDIA H100 80GB HBM3")
+    for work, mbytes, gflop in ((attention_fwd_work, 54.26, 1.872), (attention_bwd_work, 94.96, 4.680)):
+        moved, flops = work(*CIFAR_SHAPE)
+        assert moved / 1e6 == pytest.approx(mbytes, abs=0.01)
+        assert flops / 1e9 == pytest.approx(gflop, abs=0.001)
+        assert bound_ms(moved, flops, peaks)[1] == "bytes"
