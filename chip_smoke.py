@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke test of dinox_torch's serving and training paths, its
 head-major attention path, its pretraining CLI, its evaluation,
-inference-bench and LoRA fine-tuning CLIs, the CIFAR control and the
-DICOM/NIfTI preprocessing CLIs (one CUDA card).
+inference-bench and LoRA fine-tuning CLIs, the CIFAR control, the
+DICOM/NIfTI preprocessing CLIs, and module 11: the optimizer-memory
+options at ViT-L/G, the Switch-MoE family, the MAE objective and in-loop
+monitoring (one CUDA card).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -156,6 +158,40 @@ Run from the repository root:  python3 chip_smoke.py
    ViT-S bs32 for 5 steps (exact launches). The kernels line gives kernels
    1 and 2 (dq, dkv) cifar_launches and preprocess_launches, and kernel 1
    and the dq entry (the pair) their cifar timing.
+21. Optimizer memory (module 11; run after 22-24): bench_scale's step
+   (dinox_torch.bench_scale, use_grad_checkpoint) at ViT-L and ViT-G bs
+   32, each model built once and measured under f32 moments, bf16 mu and
+   nu, --factored-nu, and bf16 mu with --factored-nu, the optimizer made
+   anew between kinds (2 warm-up and 5 timed steps each): exact launches
+   (kernel 1 3 x depth a step: student, teacher, recomputation; dq and dkv
+   depth), finite losses, and for each kind img/s, MFU, the peak allocated
+   memory and the optimizer state's bytes.
+22. MoE (module 11): one micro-step of ViT-S E4 (bs 8) through the kernels
+   against plain attention (loss within 1e-2 relative, gradient cosine >=
+   0.99, >= 99% of the token routings equal, the flips' top-2 margins
+   printed); the bench's moe4 arm at bs 96 (exact launches, one profiled
+   step; slices/s and moe4_mfu); python -m dinox_torch.pretrain
+   --moe-experts 4 for 20 steps (exact launches, finite loss_moe_aux); that
+   run exported as a hub v2 dir and served through EmbedService (CLS cosine
+   >= 0.999 against plain attention, launches == depth x forwards);
+   bench_moe_sweep at E 4/8 x cf 1.0/1.25 (exact launches).
+23. MAE (module 11): kernel 1 and the pair are gated (3 and 6) at the
+   encoder's (192, 65, 1152, 6) and the decoder's (192, 257, 1536, 16), and
+   at ViT-L's (64, 261, 3072, 16) and ViT-G's (64, 261, 4224, 16); one MAE
+   micro-step through the kernels against plain attention (same views and
+   mask noise; 1e-2, 0.99); the MAE step at bs 96 timed and profiled (ms,
+   busy share); python -m dinox_torch.pretrain --loss-type mae for 20 steps
+   (kernel 1, dq and dkv depth + 8 a step: no teacher forward).
+24. Monitoring (module 11): python -m dinox_torch.pretrain --monitor-every
+   10 for 20 steps (two health.jsonl lines and two 192 x 388 previews;
+   kernel 1 depth launches a snapshot), then python -m dinox_torch.monitor
+   --run-dir on that run (stats.json, a 224 px heatmap, depth launches).
+   Kernel 1 and the pair are timed at the MAE decoder's shape and at
+   ViT-G's bs-32 shape beside SDPA, its backward and their bounds. The
+   kernels line gives kernels 1, 2 (dq, dkv) and 6 moe_launches,
+   mae_launches, scale_launches and monitor_launches, and kernel 1 and the
+   dq entry their mae_decoder and vit_g timings; a module11 line before it
+   holds the moe4 arm, the MAE step and every bench_scale result.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -165,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import functools
 import gc
 import io
 import json
@@ -190,15 +227,18 @@ from dinox_torch import (
     baseline_cifar10_pretrain,
     baseline_cifar10_view_retrieval_eval,
     bench_inference,
+    bench_moe_sweep,
+    bench_scale,
     check_checkpoint,
     evaluate_panorgan,
     finetune_lora,
+    monitor,
     pretrain,
     serve,
     validate_attention,
     view_retrieval_eval,
 )
-from dinox_torch.bench import bench_train_step, fused_block_inputs, fused_mlp_inputs
+from dinox_torch.bench import bench_config, bench_train_step, fused_block_inputs, fused_mlp_inputs
 from dinox_torch.data.cifar import synthetic_cifar
 from dinox_torch.data.dicom import write_dicom
 from dinox_torch.data.hu import HU_SHIFT, encode_hu16
@@ -209,6 +249,7 @@ from dinox_torch.data.synthetic import PROFILES_V2, draw_spacing, synth_series_n
 from dinox_torch.evaluate_panorgan import load_any_model
 from dinox_torch.evaluation.embedder import _load_batches, embed_rows
 from dinox_torch.models.config import MODEL_CONFIGS
+from dinox_torch.models.moe import MoeMlp
 from dinox_torch.models.vit import Attention, LayerNorm, Mlp, PatchViT, sdpa
 from dinox_torch.ops import _build
 from dinox_torch.ops import flash_attention as fa
@@ -274,10 +315,17 @@ TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py
 # inference bench's largest batch (3072 (batch, head) pairs), its other
 # three batch sizes (the evaluation's bs 64 among them) and the CIFAR
 # control's three.
+# Module 11's paths (phases 21-23), (b, n, 3*dim, heads): the MAE encoder on
+# CLS + 64 kept patches of 2 x 96 views (hd 64), its decoder (N 257, hd 32,
+# 16 heads), and bench_scale's ViT-L and ViT-G steps at bs 32 (2 x 32 views;
+# hd 64 and 88).
+MAE_ENC_SHAPE, MAE_DEC_SHAPE = (192, 65, 3 * 384, 6), (192, 257, 3 * 512, 16)
+VIT_L_SHAPE, VIT_G_TRAIN_SHAPE = (64, 261, 3 * 1024, 16), (64, 261, 3 * 1408, 16)
+MODULE11_SHAPES = [MAE_ENC_SHAPE, MAE_DEC_SHAPE, VIT_L_SHAPE, VIT_G_TRAIN_SHAPE]
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
                 (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6), (512, 261, 3 * 384, 6),
                 (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6),
-                *CIFAR_FWD_SHAPES]
+                *CIFAR_FWD_SHAPES, *MODULE11_SHAPES]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
@@ -289,7 +337,15 @@ BWD_TOL, BWD_REL = 0.25, 2e-2
 # 512 views of 69 tokens at hd 32.
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6),
-              (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE]
+              (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE, *MODULE11_SHAPES]
+# Module 11 (phases 21-24): bench_scale at ViT-L and ViT-G bs 32 under each
+# optimizer kind (warm-up and timed steps per kind); the MoE, MAE and monitor
+# runs of the pretraining CLI; the MoE sweep's points; the MAE decoder's depth.
+SCALE_CONFIGS, SCALE_KINDS = ("vit-large", "vit-giant"), ("f32", "bf16", "factored", "bf16+factored")
+SCALE_BATCH, SCALE_WARMUP, SCALE_STEPS = 32, 2, 5
+MODULE11_STEPS, MONITOR_EVERY = 20, 10
+SWEEP_EXPERTS, SWEEP_FACTORS, SWEEP_WARMUP, SWEEP_STEPS = (4, 8), (1.0, 1.25), 2, 5
+MAE_DECODER_DEPTH = 8
 TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
 # The pretraining CLI at full width and depth: ViT-S scale-aware bs96, tanh,
@@ -758,15 +814,17 @@ def time_mha(peaks: tuple[float, float]) -> dict[str, dict]:
     return out
 
 
-def check_step(models: tuple, label: str) -> None:
+def check_step(models: tuple, label: str, loss_type: str = "dino") -> None:
     """One micro-step of full ViT-S scale-aware at bs 8 for each of the two
     model configs *models* (the one under test first), from one state (scale
-    pathway made live) and the same views."""
-    cfgs = [TrainConfig(model=m, batch_size=8, koleo_weight=0.1) for m in models]
+    pathway made live) and the same views (and, for MAE, the same mask
+    noise). With MoE, also the experts each token went to in both runs."""
+    cfgs = [TrainConfig(model=m, batch_size=8, koleo_weight=0.1, loss_type=loss_type) for m in models]
     states = [create_train_state(cfg, seed=SEED) for cfg in cfgs]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    with torch.no_grad():  # a live scale pathway: the fresh output layer is zero
-        states[0].student.backbone.scale_embed.mlp[2].weight.normal_(0.0, 0.02, generator=gen)
+    if loss_type != "mae":
+        with torch.no_grad():  # a live scale pathway: the fresh output layer is zero
+            states[0].student.backbone.scale_embed.mlp[2].weight.normal_(0.0, 0.02, generator=gen)
     weights = states[0].student.state_dict()
     for st in states:
         st.student.load_state_dict(weights)
@@ -776,17 +834,73 @@ def check_step(models: tuple, label: str) -> None:
                              device="cuda")
     spacing = torch.as_tensor(rng.uniform(0.4, 3.0, (8, 3)).astype(np.float32), device="cuda")
     views = augment_views(pixels, torch.Generator().manual_seed(SEED), cfgs[0].aug)
-    compare_micro_steps(states, cfgs, views, spacing, "ViT-S scale-aware bs8, " + label)
+    noise = torch.rand((16, models[0].n_patches), generator=torch.Generator().manual_seed(SEED + 9))
+    compare_micro_steps(states, cfgs, views, spacing, "ViT-S scale-aware bs8, " + label,
+                        mask_noise=noise if loss_type == "mae" else None,
+                        routing=models[0].moe_experts > 0)
+
+
+@contextlib.contextmanager
+def recorded_routing(model: torch.nn.Module):
+    """Yields a list that receives (expert, top-2 margin) of every MoE MLP
+    call of *model* while the block runs."""
+    seen: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def note(mod, args) -> None:
+        with torch.no_grad():
+            probs, expert, _, _ = mod.route(args[0])
+            top2 = probs.topk(2, dim=-1).values
+            seen.append((expert, top2[..., 0] - top2[..., 1]))
+
+    hooks = [m.register_forward_pre_hook(note) for m in model.modules() if isinstance(m, MoeMlp)]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def compare_micro_steps(states: list, cfgs: list, views: torch.Tensor, spacing: torch.Tensor,
-                        label: str) -> None:
+                        label: str, mask_noise: torch.Tensor | None = None,
+                        routing: bool = False) -> None:
     """micro_loss_and_grads of two states (the one under test first) on the
     same (n_views, B, S, S, 3) views: the losses within 1e-2 relative and
-    every gradient that is not zero in both at cosine >= 0.99."""
+    every gradient that is not zero in both at cosine >= 0.99. With
+    *routing* (MoE): first the routing each student's forward takes on its
+    own: at least 99% of the token decisions equal (a token whose top-2
+    router margin is below the two runs' rounding difference may go either
+    way, and a flipped token's router gradient differs; the flips' margins
+    are printed); then the step of the second state runs with the first's
+    routing (``MoeMlp.route``'s *expert*), so that the gradients compare
+    the attention kernels, not a flipped token."""
     batch = views.reshape((-1,) + tuple(views.shape[2:]))
-    (g_k, _, m_k), (g_p, _, m_p) = (micro_loss_and_grads(st, st.center, batch, spacing, cfg)
-                                    for st, cfg in zip(states, cfgs))
+    with recorded_routing(states[0].student) as seen:
+        first = micro_loss_and_grads(states[0], states[0].center, batch, spacing, cfgs[0],
+                                     mask_noise=mask_noise)
+    moes = [m for m in states[1].student.modules() if isinstance(m, MoeMlp)]
+    if routing:
+        sp2 = torch.cat([spacing, spacing]) if cfgs[1].model.scale_aware else None
+        with torch.no_grad(), recorded_routing(states[1].student) as own:
+            states[1].student.forward_features(batch, sp2)
+        same = torch.cat([(a == b).flatten() for (a, _), (b, _) in zip(seen, own)])
+        margins = torch.cat([m.flatten() for _, m in own])
+        flips = margins[~same]
+        print(f"MoE routing, {label}: {int(same.sum())} of {same.numel()} token decisions "
+              f"({len(seen)} MoE calls) go to the same expert in both runs "
+              f"({100 * same.float().mean().item():.3f}%); the {int((~same).sum())} others had top-2 "
+              f"margins up to {flips.max().item() if flips.numel() else 0.0:.3e} in the plain run "
+              f"(median margin of all tokens {margins.median().item():.3e})", flush=True)
+        if same.float().mean().item() < 0.99:
+            fail(f"the MoE routing ({label}) disagrees on more than 1% of the tokens")
+        for m, (expert, _) in zip(moes, seen):  # the second run takes the first's routing
+            m.route = functools.partial(MoeMlp.route, m, expert=expert)
+    try:
+        second = micro_loss_and_grads(states[1], states[1].center, batch, spacing, cfgs[1],
+                                      mask_noise=mask_noise)
+    finally:
+        for m in moes:
+            m.__dict__.pop("route", None)
+    (g_k, _, m_k), (g_p, _, m_p) = first, second
     loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
     rel = abs(loss_k - loss_p) / abs(loss_p)
     names = [n for n, _ in states[0].student.named_parameters()]
@@ -806,13 +920,14 @@ def compare_micro_steps(states: list, cfgs: list, views: torch.Tensor, spacing: 
 
 
 def report_training(res: dict, cfg, card: str, steps: int, kinds: list = KERNEL_KINDS) -> None:
-    """Rate, MFU, busy share and device time by *kinds* of a bench_train_step
-    result with a profile."""
+    """Rate, MFU (unless *cfg* is None: no FLOP count for that objective),
+    busy share and device time by *kinds* of a bench_train_step result with
+    a profile."""
     peak = card_peaks(card)[0]
+    util = "" if cfg is None else (f"; MFU {mfu(res['slices_per_s'], cfg, peak):.4f} against "
+                                   f"{peak / 1e12:.0f} TFLOP/s bf16")
     print(f"training rate: {res['slices_per_s']:.2f} slices/s ({res['step_ms']:.2f} ms per step "
-          f"of {TRAIN_BATCH} slices, host clock over {steps} steps); MFU "
-          f"{mfu(res['slices_per_s'], cfg, peak):.4f} against {peak / 1e12:.0f} TFLOP/s bf16",
-          flush=True)
+          f"of {TRAIN_BATCH} slices, host clock over {steps} steps){util}", flush=True)
     prof = res["profile"]
     print(f"one profiled step: device time {prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
           f"wall = {100 * prof['device_ms'] / prof['wall_ms']:.1f}% busy (torch.profiler); top "
@@ -2021,6 +2136,251 @@ def preprocess_path(tmp: Path) -> dict[str, int]:
 
 
 
+def add_counts(total: dict[str, int], counts: dict[str, int]) -> dict[str, int]:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def expect_counts(label: str, want: dict[str, int], what: str) -> dict[str, int]:
+    """The launch counts since the last reset, held to *want*."""
+    counts = launch_counts()
+    print(f"{label}: launches {counts} (want {want}: {what})", flush=True)
+    if counts != want:
+        fail(f"{label} did not run every attention through the kernels exactly as counted")
+    return counts
+
+
+def scale_path(card: str) -> tuple[dict[str, int], dict]:
+    """Phase 21, optimizer memory: bench_scale's step at ViT-L and ViT-G bs
+    32 (use_grad_checkpoint), each model built once and measured under each
+    optimizer kind of SCALE_KINDS in turn (the optimizer made anew), with
+    exact launch counts (kernel 1 3 x depth a step: student, teacher,
+    recomputation; dq and dkv depth). Prints bench_scale's lines (peak
+    allocated, optimizer bytes; img/s, MFU, loss) for each. Returns the
+    counts and {(config, kind): result}."""
+    peak = card_peaks(card)[0]
+    total: dict[str, int] = {}
+    results = {}
+    for config in SCALE_CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        depth = MODEL_CONFIGS[config].depth
+        steps = len(SCALE_KINDS) * (SCALE_WARMUP + SCALE_STEPS)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        runs = bench_scale.run_kinds(config, SCALE_BATCH, SCALE_KINDS, steps=SCALE_STEPS,
+                                     warmup=SCALE_WARMUP)
+        wall = time.perf_counter() - t0
+        total = add_counts(total, expect_counts(
+            f"bench_scale {config} bs{SCALE_BATCH}, {steps} steps over {len(SCALE_KINDS)} optimizer kinds",
+            want_counts(packed_attention=steps * 3 * depth, packed_attention_bwd_dq=steps * depth,
+                        packed_attention_bwd_dkv=steps * depth),
+            "kernel 1 3 x depth, dq and dkv depth, per step"))
+        base = None
+        for kind, cfg, res in runs:
+            line = bench_scale.report(config, cfg, res, peak)
+            base = base or res
+            print(f"bench_scale {config} optimizer {kind} (mu {cfg.mu_dtype}, nu {cfg.nu_dtype}, "
+                  f"factored_nu {cfg.factored_nu}):", flush=True)
+            print(json.dumps({"max_memory_allocated": res["max_memory_allocated"],
+                              "optimizer_bytes": res["optimizer_bytes"]}), flush=True)
+            print(json.dumps(line), flush=True)
+            print(f"  peak allocated {res['max_memory_allocated'] / 1e9:.3f} GB "
+                  f"({(base['max_memory_allocated'] - res['max_memory_allocated']) / 1e9:+.3f} GB "
+                  f"below f32), optimizer state {res['optimizer_bytes'] / 1e9:.3f} GB "
+                  f"({(base['optimizer_bytes'] - res['optimizer_bytes']) / 1e9:+.3f} GB below f32); "
+                  f"img/s {res['img_s']:.2f} ({res['img_s'] / base['img_s']:.3f} x f32)", flush=True)
+            if not np.isfinite(res["loss"]):
+                fail(f"bench_scale {config} {kind}: non-finite loss")
+            results[(config, kind)] = {**res, "mfu": line["mfu"]}
+        print(f"bench_scale {config}: {wall:.1f} s for the model and {len(SCALE_KINDS)} kinds",
+              flush=True)
+        del runs
+    return total, results
+
+
+def moe_path(card: str, bench_rate: float, tmp: Path) -> tuple[dict[str, int], dict]:
+    """Phase 22, MoE: a ViT-S E4 micro-step through the kernels against
+    plain attention (loss, gradients, routing); the bench's moe4 arm (bs 96,
+    exact launches, one profiled step); python -m dinox_torch.pretrain
+    --moe-experts 4 for MODULE11_STEPS steps (exact launches, a finite
+    loss_moe_aux at every step); its checkpoint exported as a hub v2 dir and
+    served through EmbedService (CLS cosine against plain attention,
+    launches == depth x forwards); bench_moe_sweep at SWEEP_EXPERTS x
+    SWEEP_FACTORS. Returns the counts of the timed paths and the moe4
+    numbers."""
+    peak = card_peaks(card)[0]
+    vit_s = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    depth = vit_s.depth
+    moe = vit_s.replace(moe_experts=4)
+    check_step((moe, moe.replace(attn_impl="xla")), "MoE E4 cf1.25, kernels vs plain attention")
+    total: dict[str, int] = {}
+
+    reset_launch_counts()
+    res = bench_train_step(TRAIN_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, moe_experts=4,
+                           profile=True)
+    steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    total = add_counts(total, expect_counts(
+        f"bench moe4 arm, {steps} steps", want_counts(
+            packed_attention=steps * 2 * depth, packed_attention_bwd_dq=steps * depth,
+            packed_attention_bwd_dkv=steps * depth), "forward 2 x depth, backward depth, per step"))
+    moe_cfg = bench_config(TRAIN_BATCH, moe_experts=4).model
+    rate = res["slices_per_s"]
+    moe4 = {"moe4_slices_per_sec": rate, "moe4_mfu": mfu(rate, moe_cfg, peak),
+            "step_ms": res["step_ms"]}
+    print(json.dumps(moe4), flush=True)
+    print(f"moe4 arm: {res['step_ms']:.2f} ms a bs{TRAIN_BATCH} step, {rate:.2f} slices/s against "
+          f"the dense tanh arm's {bench_rate:.2f} (phase 8): {100 * (bench_rate / rate - 1):.1f}% "
+          f"slower", flush=True)
+    report_training(res, moe_cfg, card, TRAIN_STEPS)
+
+    run = tmp / "moe"
+    reset_launch_counts()
+    wall, _ = run_cli(PRETRAIN_ARGS + ["--moe-experts", "4", "--max-steps", str(MODULE11_STEPS),
+                                       "--run-dir", str(run)], "--moe-experts 4")
+    total = add_counts(total, expect_counts(
+        f"pretrain --moe-experts 4, {MODULE11_STEPS} steps", want_counts(
+            packed_attention=MODULE11_STEPS * 2 * depth,
+            packed_attention_bwd_dq=MODULE11_STEPS * depth,
+            packed_attention_bwd_dkv=MODULE11_STEPS * depth), "forward 2 x depth, backward depth"))
+    metrics = read_metrics(run)
+    aux = [metrics.get(s, {}).get("loss_moe_aux", float("nan")) for s in range(1, MODULE11_STEPS + 1)]
+    loss = [metrics.get(s, {}).get("loss", float("nan")) for s in range(1, MODULE11_STEPS + 1)]
+    print(f"pretrain --moe-experts 4: {MODULE11_STEPS} steps in {wall:.1f} s; loss {loss[0]:.4f} -> "
+          f"{loss[-1]:.4f}, loss_moe_aux {aux[0]:.4f} -> {aux[-1]:.4f}", flush=True)
+    if not np.isfinite(aux + loss).all():
+        fail("the MoE pretraining run did not log a finite loss and loss_moe_aux at every step")
+
+    hub = tmp / "moe_hub"
+    export_hub_checkpoint(load_backbone_from_run(run), hub, use_safetensors=True)
+    hub_cfg = json.loads((hub / "config.json").read_text())
+    if hub_cfg.get("weights_format") != "jax" or hub_cfg.get("moe_experts") != 4:
+        fail(f"the MoE run exported a hub dir with config {hub_cfg}")
+    service = serve.EmbedService(str(hub), BUCKETS, device="cuda")
+    try:
+        rng = np.random.default_rng(SEED + 12)
+        imgs = rng.integers(-1000, 1500, size=(8, 512, 512)).astype(np.float32)
+        sps = rng.uniform(0.5, 3.0, size=(8, 3)).astype(np.float32)
+        reset_launch_counts()
+        f0 = service.stats["forwards"]
+        with recorded_routing(service.model) as seen:  # one bucket-8 forward
+            served = service.embed(list(imgs), sps)
+        forwards = service.stats["forwards"] - f0
+        counts = launch_counts()
+        ref = LoadedModel(service.model.cfg.replace(attn_impl="xla"), "cuda")
+        ref.load_state_dict(service.model.state_dict())
+        xs = np.stack([_preprocess(im, 224, "hu_float", 40.0, 400.0) for im in imgs])
+        with recorded_routing(ref) as own:
+            free = ref(xs, sps)[:, 0, :].float().cpu().numpy()
+        moes = [m for m in ref.modules() if isinstance(m, MoeMlp)]
+        for m, (expert, _) in zip(moes, seen):  # the plain model takes the served routing
+            m.route = functools.partial(MoeMlp.route, m, expert=expert)
+        held = ref(xs, sps)[:, 0, :].float().cpu().numpy()
+    finally:
+        service.close()
+    same = torch.cat([(a == b).flatten() for (a, _), (b, _) in zip(seen, own)]).float().mean().item()
+    cos, cos_free = cls_cosine(np.asarray(served), held), cls_cosine(np.asarray(served), free)
+    print(f"served the MoE run's hub v2 dir: {forwards} forwards, packed_attention launches "
+          f"{counts['packed_attention']} (depth x forwards = {depth * forwards}); CLS cosine "
+          f"against plain attention on the served routing min {cos.min():.6f}; on its own routing "
+          f"({100 * same:.3f}% of token decisions equal) min {cos_free.min():.6f}", flush=True)
+    if counts != want_counts(packed_attention=depth * forwards) or cos.min() < 0.999 or same < 0.99:
+        fail("the served MoE backbone did not go through the kernel or disagrees with plain attention")
+
+    reset_launch_counts()
+    argv = ["--experts", *map(str, SWEEP_EXPERTS), "--capacity-factors", *map(str, SWEEP_FACTORS),
+            "--steps", str(SWEEP_STEPS), "--warmup", str(SWEEP_WARMUP)]
+    wall, out = run_cli(argv, "sweep", main=bench_moe_sweep.main)
+    points = len(SWEEP_EXPERTS) * len(SWEEP_FACTORS) * (SWEEP_WARMUP + SWEEP_STEPS)
+    total = add_counts(total, expect_counts(
+        f"bench_moe_sweep E {SWEEP_EXPERTS} x cf {SWEEP_FACTORS}, {points} steps in {wall:.1f} s",
+        want_counts(packed_attention=points * 2 * depth, packed_attention_bwd_dq=points * depth,
+                    packed_attention_bwd_dkv=points * depth), "forward 2 x depth, backward depth"))
+    return total, moe4
+
+
+def mae_path(card: str, tmp: Path) -> tuple[dict[str, int], dict]:
+    """Phase 23, MAE: a ViT-S MAE micro-step through the kernels against
+    plain attention (same views, same mask noise); the MAE step at bs 96
+    timed and profiled (its ms and busy share); python -m
+    dinox_torch.pretrain --loss-type mae for MODULE11_STEPS steps, exact
+    launches (kernel 1, dq and dkv each depth + 8 a step: encoder and
+    decoder, no teacher). Returns the counts and the step's numbers."""
+    vit_s = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    per_step = vit_s.depth + MAE_DECODER_DEPTH
+    check_step((vit_s, vit_s.replace(attn_impl="xla")), "MAE, kernels vs plain attention",
+               loss_type="mae")
+    total: dict[str, int] = {}
+    cfg = TrainConfig(model=vit_s, batch_size=TRAIN_BATCH, loss_type="mae", warmup_steps=100,
+                      max_steps=5000)
+    reset_launch_counts()
+    res = bench_train_step(TRAIN_BATCH, steps=FUSED_STEPS, warmup=FUSED_WARMUP, profile=True, cfg=cfg)
+    steps = FUSED_WARMUP + FUSED_STEPS + 1
+    total = add_counts(total, expect_counts(
+        f"MAE step bs{TRAIN_BATCH}, {steps} steps", want_counts(
+            packed_attention=steps * per_step, packed_attention_bwd_dq=steps * per_step,
+            packed_attention_bwd_dkv=steps * per_step), "kernel 1, dq and dkv depth + 8 a step"))
+    prof = res["profile"]
+    step = {"step_ms": res["step_ms"], "samples_per_s": res["slices_per_s"],
+            "device_ms": prof["device_ms"], "busy": prof["device_ms"] / prof["wall_ms"]}
+    print(f"MAE step: {res['step_ms']:.2f} ms a bs{TRAIN_BATCH} step ({res['slices_per_s']:.2f} "
+          f"samples/s, host clock over {FUSED_STEPS} steps); losses {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}", flush=True)
+    report_training(res, None, card, FUSED_STEPS)
+
+    run = tmp / "mae"
+    reset_launch_counts()
+    wall, _ = run_cli(PRETRAIN_ARGS + ["--loss-type", "mae", "--max-steps", str(MODULE11_STEPS),
+                                       "--run-dir", str(run)], "--loss-type mae")
+    n = MODULE11_STEPS * per_step
+    total = add_counts(total, expect_counts(
+        f"pretrain --loss-type mae, {MODULE11_STEPS} steps",
+        want_counts(packed_attention=n, packed_attention_bwd_dq=n, packed_attention_bwd_dkv=n),
+        "kernel 1, dq and dkv depth + 8 a step; no teacher forward"))
+    metrics = read_metrics(run)
+    loss = [metrics.get(s, {}).get("loss_mae", float("nan")) for s in range(1, MODULE11_STEPS + 1)]
+    print(f"pretrain --loss-type mae: {MODULE11_STEPS} steps in {wall:.1f} s; loss_mae {loss[0]:.4f} "
+          f"-> {loss[-1]:.4f}", flush=True)
+    if not np.isfinite(loss).all():
+        fail("the MAE pretraining run did not log a finite loss_mae at every step")
+    return total, step
+
+
+def monitor_path(tmp: Path) -> dict[str, int]:
+    """Phase 24, monitoring: python -m dinox_torch.pretrain --monitor-every
+    MONITOR_EVERY for MODULE11_STEPS steps (two health.jsonl lines and two
+    previews; kernel 1 2 x depth a step and depth a snapshot), then python
+    -m dinox_torch.monitor --run-dir on that run (one forward of its 32
+    probes: depth launches). Returns the counts."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    run = tmp / "monitored"
+    snaps = MODULE11_STEPS // MONITOR_EVERY
+    reset_launch_counts()
+    run_cli(PRETRAIN_ARGS + ["--monitor-every", str(MONITOR_EVERY), "--max-steps",
+                             str(MODULE11_STEPS), "--run-dir", str(run)], "--monitor-every")
+    total = expect_counts(
+        f"pretrain --monitor-every {MONITOR_EVERY}, {MODULE11_STEPS} steps", want_counts(
+            packed_attention=MODULE11_STEPS * 2 * depth + snaps * depth,
+            packed_attention_bwd_dq=MODULE11_STEPS * depth,
+            packed_attention_bwd_dkv=MODULE11_STEPS * depth),
+        "2 x depth a step and depth a snapshot; backward depth a step")
+    health = [json.loads(x) for x in (run / "monitor" / "health.jsonl").read_text().splitlines()]
+    pngs = sorted((run / "monitor").glob("step_*.png"))
+    shapes = [read_png16(p).shape for p in pngs]
+    print(f"monitor: health.jsonl {health}; previews {[p.name for p in pngs]} {shapes}", flush=True)
+    if [h["step"] for h in health] != [MONITOR_EVERY * (i + 1) for i in range(snaps)] \
+            or len(pngs) != snaps or any(sh != (192, 388) for sh in shapes) \
+            or not all(np.isfinite([h["embed_std"], h["gram_mean"]]).all() for h in health):
+        fail("the in-loop monitor did not write its snapshots")
+    reset_launch_counts()
+    _, out = run_cli(["--run-dir", str(run)], "monitor", main=monitor.main)
+    total = add_counts(total, expect_counts("python -m dinox_torch.monitor", want_counts(
+        packed_attention=depth), "one forward of 32 probes"))
+    stats = json.loads((run / "stats.json").read_text())
+    if stats["step"] != MODULE11_STEPS or read_png16(run / "heatmap.png").shape != (224, 224):
+        fail(f"the monitor CLI wrote {stats} and no 224 px heatmap")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2178,12 +2538,43 @@ def main() -> int:
         cifar_counts, cifar_fwd, cifar_bwd = cifar_path(tmp, peaks)
         preprocess_counts = preprocess_path(tmp)
 
+    # -- module 11: MoE, MAE, monitoring, then optimizer memory at ViT-L/G --
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        moe_counts, moe4 = moe_path(card, bench_rate, tmp)
+        mae_counts, mae_step = mae_path(card, tmp)
+        monitor_counts = monitor_path(tmp)
+    scale_counts, scale = scale_path(card)
+    mae_fwd = time_forward(peaks, MAE_DEC_SHAPE, "MAE decoder", SEED + 13)
+    mae_bwd = time_backward(peaks, MAE_DEC_SHAPE)
+    g_fwd = time_forward(peaks, VIT_G_TRAIN_SHAPE, "ViT-G bench_scale", SEED + 14)
+    g_bwd = time_backward(peaks, VIT_G_TRAIN_SHAPE)
+    print(json.dumps({"module11": {
+        "moe4": moe4, "mae_step": mae_step,
+        "bench_scale": {f"{c}/{k}": {key: r[key] for key in ("img_s", "step_ms", "mfu", "loss",
+                                                             "max_memory_allocated", "optimizer_bytes")}
+                        for (c, k), r in scale.items()}}}), flush=True)
+
     def later_paths(name: str) -> dict[str, int]:
         return {"eval_launches": eval_counts[name],
                 "bench_inference_launches": infer_counts.get(name, 0),
                 "finetune_launches": finetune_counts[name],
                 "cifar_launches": cifar_counts[name],
-                "preprocess_launches": preprocess_counts[name]}
+                "preprocess_launches": preprocess_counts[name],
+                "moe_launches": moe_counts[name],
+                "mae_launches": mae_counts[name],
+                "scale_launches": scale_counts[name],
+                "monitor_launches": monitor_counts[name]}
+
+    def fwd_timing(t: dict) -> dict:
+        return {"shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"], "device_ms": t["device_ms"]}
+
+    def pair_timing(t: dict, shape: tuple) -> dict:
+        c = t["dq"]
+        return {"shape": list(shape), "ms": c["ms"], "device_ms": c["device_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound"][0], "bound_by": c["bound"][1], "library_ms": c["library_ms"],
+                "library_device_ms": c["library_device_ms"]}
 
     kernels = [{
         "name": "packed_attention",
@@ -2211,6 +2602,8 @@ def main() -> int:
         "cifar": {"shape": cifar_fwd["shape"], "ms": cifar_fwd["ms"], "plain_ms": cifar_fwd["plain_ms"],
                   "bound_ms": cifar_fwd["bound"][0], "bound_by": cifar_fwd["bound"][1],
                   "library_ms": cifar_fwd["library_ms"], "device_ms": cifar_fwd["device_ms"]},
+        "mae_decoder": fwd_timing(mae_fwd),
+        "vit_g": fwd_timing(g_fwd),
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -2240,6 +2633,8 @@ def main() -> int:
                                     "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
                                     "bound_by": c["bound"][1], "library_ms": c["library_ms"],
                                     "library_device_ms": c["library_device_ms"]}
+            kernels[-1]["mae_decoder"] = pair_timing(mae_bwd, MAE_DEC_SHAPE)
+            kernels[-1]["vit_g"] = pair_timing(g_bwd, VIT_G_TRAIN_SHAPE)
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
          fused["attn_training"], fused_counts["fused_attn_block"]),

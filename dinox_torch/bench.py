@@ -9,11 +9,13 @@ warmup 100 and horizon 5000 steps, synthetic uint16 512x512 canvases
 (``integers(25000, 41000)``) and spacings (``uniform(0.4, 3.0)``) from seed
 0, 5 warm-up steps and 20 timed steps; the loss must stay finite. It runs
 the JAX bench's dense arms: exact GELU, tanh GELU (the default) and tanh
-with the fused attention half-block (``tanh+fused_attn``), and prints the
-JAX bench's headline: ``value`` and ``mfu`` (against the card's dense bf16
-peak) of the better tanh arm, ``vs_baseline`` (``value`` over the
-reference's 159 slices/s), each arm's rate, and the card's name and power
-limit. A failing arm raises. ``--check`` holds the packed attention
+with the fused attention half-block (``tanh+fused_attn``), and its
+Switch-MoE arm (``moe4``: tanh, unfused, 4 experts in every second block,
+capacity factor 1.25), and prints the JAX bench's headline: ``value`` and
+``mfu`` (against the card's dense bf16 peak) of the better tanh arm (never
+the MoE arm), ``vs_baseline`` (``value`` over the reference's 159
+slices/s), each arm's rate, ``moe4_mfu`` with the MoE-aware FLOPs, and the
+card's name and power limit. A failing arm raises. ``--check`` holds the packed attention
 forward and backward kernels against the plain versions at (8, 261, 384, 6) and
 (2, 261, 1408, 16), forward within 0.02, backward within 0.25 (bf16), the
 head-major forward (kernel 4, the JAX check's "unpacked" line) at
@@ -62,27 +64,34 @@ def card_line() -> str:
 
 
 def bench_config(batch_size: int, gelu_approx: bool = True, fused_attn: bool = False,
-                 fused_mlp: bool = False) -> TrainConfig:
+                 fused_mlp: bool = False, moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25) -> TrainConfig:
     return TrainConfig(
         model=MODEL_CONFIGS["vit-small"].replace(scale_aware=True, attn_impl="pallas",
                                                  gelu_approx=gelu_approx, fused_attn=fused_attn,
-                                                 fused_mlp=fused_mlp),
+                                                 fused_mlp=fused_mlp, moe_experts=moe_experts,
+                                                 moe_capacity_factor=moe_capacity_factor),
         batch_size=batch_size, koleo_weight=0.1, warmup_steps=100, max_steps=5000)
 
 
 def bench_train_step(batch_size: int, steps: int = 20, warmup: int = 5, gelu_approx: bool = True,
-                     fused_attn: bool = False, fused_mlp: bool = False,
-                     device: torch.device | str | None = None, profile: bool = False
-                     ) -> dict[str, Any]:
+                     fused_attn: bool = False, fused_mlp: bool = False, moe_experts: int = 0,
+                     moe_capacity_factor: float = 1.25,
+                     device: torch.device | str | None = None, profile: bool = False,
+                     cfg: TrainConfig | None = None) -> dict[str, Any]:
     """Time *steps* training steps after *warmup*, on the card unless
-    *device* is ``"cpu"``; *fused_attn* and *fused_mlp* set the model's
-    switches (the fused MLP applies with exact GELU only). Returns
+    *device* is ``"cpu"``; *fused_attn*, *fused_mlp*, *moe_experts* and
+    *moe_capacity_factor* set the model's switches (the fused MLP applies
+    with exact GELU only); *cfg*, when given, is the config instead (its
+    batch size must be *batch_size*). Returns
     ``slices_per_s``, ``step_ms`` and every
     step's ``losses``; with *profile*, one more step runs under
     ``torch.profiler`` and ``profile`` holds its device time, wall time and
     device time by kernel. Raises if a loss is not finite."""
     dev = resolve_device(device)
-    cfg = bench_config(batch_size, gelu_approx, fused_attn, fused_mlp)
+    if cfg is None:
+        cfg = bench_config(batch_size, gelu_approx, fused_attn, fused_mlp, moe_experts,
+                           moe_capacity_factor)
     state = create_train_state(cfg, seed=0, device=dev)
     step_fn = build_train_step(cfg, device=dev)
     rng = np.random.default_rng(0)
@@ -232,14 +241,15 @@ def main(argv: list[str] | None = None) -> int:
     peak = card_peaks(card)[0]
     mcfg = bench_config(96).model
     rates = {}
-    for name, approx, fused in (("exact", False, False), ("tanh", True, False),
-                                ("tanh+fused_attn", True, True)):
-        res = bench_train_step(96, gelu_approx=approx, fused_attn=fused)
+    for name, approx, fused, experts in (("exact", False, False, 0), ("tanh", True, False, 0),
+                                         ("tanh+fused_attn", True, True, 0), ("moe4", True, False, 4)):
+        res = bench_train_step(96, gelu_approx=approx, fused_attn=fused, moe_experts=experts)
         rates[name] = res["slices_per_s"]
         print(f"# gelu={name} batch=96: {rates[name]:.1f} slices/s, {res['step_ms']:.1f} ms/step",
               file=sys.stderr)
         torch.cuda.empty_cache()
-    best = max(rates["tanh"], rates["tanh+fused_attn"])  # the JAX bench's headline arm
+    # The JAX bench's headline arm: the better dense tanh arm, never the MoE arm.
+    best = max(rates["tanh"], rates["tanh+fused_attn"])
     print(json.dumps({
         "metric": "vit_s_pretrain_slices_per_sec", "value": best, "unit": "slices/s",
         "vs_baseline": best / BASELINE_SLICES_PER_S, "gelu": "tanh",
@@ -247,6 +257,8 @@ def main(argv: list[str] | None = None) -> int:
         "exact_gelu_slices_per_sec": rates["exact"],
         "exact_gelu_mfu": mfu(rates["exact"], mcfg.replace(gelu_approx=False), peak),
         "fused_attn_slices_per_sec": rates["tanh+fused_attn"],
+        "moe4_slices_per_sec": rates["moe4"],
+        "moe4_mfu": mfu(rates["moe4"], bench_config(96, moe_experts=4).model, peak),
         "peak_flops": peak, "card": card_line(),
     }))
     return 0

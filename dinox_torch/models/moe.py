@@ -1,0 +1,72 @@
+"""Switch-style top-1 Mixture-of-Experts MLP: the counterpart of
+``dinox_tpu.models.moe.MoeMlp`` on one card (the JAX package's expert-axis
+sharding constraints belong to multi-GPU work).
+
+Dense dispatch, as in the JAX package: routing is one-hot einsums onto a
+fixed-capacity (B, E, C, D) buffer, grouped per image. The router is a
+float32 dense layer on ``x.float()``; each token goes to the argmax of the
+softmax; an expert takes at most ``C = max(1, int(N / E * capacity))``
+tokens of an image (a floor, as the JAX code computes it), in token order,
+and the overflow is dropped (its MLP output is zero, so the residual
+carries it). The Switch load-balance loss ``E * sum_e mean(onehot_e) *
+mean(p_e)`` over all tokens is returned beside the output. Dispatch, the
+experts and the combine run in the compute dtype; the combine weights
+``dispatch * gate`` are rounded to it before the einsum, as in the JAX
+package. The expert stacks keep the JAX package's layout: ``w1`` (E, D, H),
+``b1`` (E, 1, H), ``w2`` (E, H, D), ``b2`` (E, 1, D).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class MoeMlp(nn.Module):
+    """(B, N, D) -> ((B, N, D) in x's dtype, the float32 aux loss)."""
+
+    def __init__(self, dim: int, n_experts: int, mlp_ratio: float = 4.0,
+                 capacity_factor: float = 1.25, gelu_approx: bool = True):
+        super().__init__()
+        from dinox_torch.models.vit import Linear
+
+        hidden = int(dim * mlp_ratio)
+        self.n_experts, self.capacity_factor = n_experts, capacity_factor
+        self.approximate = "tanh" if gelu_approx else "none"
+        self.router = Linear(dim, n_experts)
+        self.w1 = nn.Parameter(torch.empty(n_experts, dim, hidden))
+        self.b1 = nn.Parameter(torch.zeros(n_experts, 1, hidden))
+        self.w2 = nn.Parameter(torch.empty(n_experts, hidden, dim))
+        self.b2 = nn.Parameter(torch.zeros(n_experts, 1, dim))
+
+    def capacity(self, n_tokens: int) -> int:
+        return max(1, int(n_tokens / self.n_experts * self.capacity_factor))
+
+    def route(self, x: torch.Tensor, expert: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(probs (B, N, E) f32, expert (B, N), dispatch (B, N, E, C) f32, aux).
+        *expert*, when given, replaces the router's argmax (to hold two runs
+        to one routing); the gates stay the router's probabilities."""
+        e = self.n_experts
+        cap = self.capacity(x.shape[1])
+        probs = torch.softmax(self.router(x.float()), dim=-1)
+        if expert is None:
+            expert = torch.argmax(probs, dim=-1)
+        onehot = F.one_hot(expert, e).float()
+        aux = e * torch.sum(onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        pos = torch.einsum("bte,bte->bt", torch.cumsum(onehot, dim=1) - 1.0, onehot)
+        pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).float()  # 0 past C
+        dispatch = onehot[..., None] * pos_oh[:, :, None, :]
+        return probs, expert, dispatch, aux
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        dt = x.dtype
+        probs, expert, dispatch, aux = self.route(x)
+        gate = torch.gather(probs, -1, expert[..., None])[..., 0]
+        xe = torch.einsum("btec,btd->becd", dispatch.to(dt), x)
+        h = torch.einsum("becd,edh->bech", xe, self.w1.to(dt)) + self.b1.to(dt)
+        h = F.gelu(h, approximate=self.approximate)
+        ye = torch.einsum("bech,ehd->becd", h, self.w2.to(dt)) + self.b2.to(dt)
+        combine = (dispatch * gate[..., None, None]).to(dt)
+        return torch.einsum("btec,becd->btd", combine, ye), aux

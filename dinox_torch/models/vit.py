@@ -39,6 +39,14 @@ rounding points:
   are peft's without their ``base_model.model.`` prefix. Adapted blocks
   keep off the fused half-blocks, as in the JAX package; their attention
   is kernel 1 forward and kernels 2/3 backward.
+* ``moe_experts > 0`` puts a Switch top-1 MoE MLP (``models.moe.MoeMlp``,
+  under ``blocks.N.moe``) in place of the MLP of every block with
+  ``N % moe_every == moe_every - 1``, after ``norm2``, as the JAX package
+  does; such a block takes no fused MLP and no LoRA on its MLP half. Each
+  MoE block returns its load-balance loss beside its output
+  (:meth:`TransformerBlock.forward_with_aux`), so the loss and its gradient
+  come out of a checkpointed block's recomputation like the output;
+  :meth:`PatchViT.forward_with_aux` averages them over the MoE blocks.
 * ``use_grad_checkpoint`` recomputes each block in the backward
   (``torch.utils.checkpoint``), only in training mode, like the JAX
   package's ``nn.remat`` under ``train=True``. The recomputation replays
@@ -61,6 +69,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from dinox_torch.models.config import ModelConfig
+from dinox_torch.models.moe import MoeMlp
 from dinox_torch.ops.flash_attention import flash_attention, flash_attention_packed
 from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
@@ -215,7 +224,7 @@ class TransformerBlock(nn.Module):
     """Pre-norm block; the residual stream stays in the compute dtype. The
     fused paths read the same submodules' parameters."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, moe: bool = False):
         super().__init__()
         def lora(name: str) -> Optional[tuple[int, float, float]]:
             if cfg.lora_rank > 0 and name in cfg.lora_targets:
@@ -225,22 +234,33 @@ class TransformerBlock(nn.Module):
         self.norm1 = LayerNorm(cfg.dim, dtype)
         self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl, lora)
         self.norm2 = LayerNorm(cfg.dim, dtype)
-        self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx, lora)
+        if moe:
+            self.moe = MoeMlp(cfg.dim, cfg.moe_experts, cfg.mlp_ratio, cfg.moe_capacity_factor,
+                              cfg.gelu_approx)
+        else:
+            self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx, lora)
         self.fused_attn = takes_fused_attn(cfg)
-        self.fused_mlp = takes_fused_mlp(cfg)
+        self.fused_mlp = takes_fused_mlp(cfg) and not moe
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_with_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(output, the MoE load-balance loss or None for a dense block)."""
         if self.fused_attn:
             a = self.attn
             x = fused_attn_block(x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
                                  a.proj.weight, a.proj.bias, a.heads)
         else:
             x = x + self.attn(self.norm1(x))
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.norm2(x))
+            return x + y, aux
         if self.fused_mlp:
             m = self.mlp
             return fused_mlp_block(x, self.norm2.weight, self.norm2.bias, m.fc1.weight, m.fc1.bias,
-                                   m.fc2.weight, m.fc2.bias)
-        return x + self.mlp(self.norm2(x))
+                                   m.fc2.weight, m.fc2.bias), None
+        return x + self.mlp(self.norm2(x)), None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(x)[0]
 
 
 class ScaleEmbedding(nn.Module):
@@ -259,9 +279,7 @@ class ScaleEmbedding(nn.Module):
         return self.mlp(spacing.to(self.dtype))[:, None, :]
 
 
-def _reject_unported(cfg: ModelConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(f"moe_experts={cfg.moe_experts!r} is not ported to dinox_torch yet")
+def _check_config(cfg: ModelConfig) -> None:
     unknown = set(cfg.lora_targets) - {"qkv", "proj", "fc1", "fc2"}
     if cfg.lora_rank > 0 and unknown:
         raise ValueError(f"unknown LoRA target modules: {sorted(unknown)}")
@@ -280,7 +298,7 @@ class PatchViT(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str | None = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _reject_unported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         self.compute_dtype = DTYPES[cfg.dtype]
         d = cfg.dim
@@ -291,7 +309,10 @@ class PatchViT(nn.Module):
             self.registers = nn.Parameter(torch.empty(1, cfg.num_registers, d))
         if cfg.scale_aware:
             self.scale_embed = ScaleEmbedding(d, self.compute_dtype)
-        self.blocks = nn.ModuleList(TransformerBlock(cfg, self.compute_dtype) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(cfg, self.compute_dtype,
+                             moe=cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1)
+            for i in range(cfg.depth))
         self.norm = LayerNorm(d, torch.float32)
         self.reset_parameters(generator)
         if device is not None:
@@ -319,6 +340,12 @@ class PatchViT(nn.Module):
         self.patch_embed.bias.zero_()
         trunc(self.cls_token, 0.02)
         trunc(self.pos_embed, 0.1)
+        for m in self.modules():
+            if isinstance(m, MoeMlp):  # flax: router truncated normal, experts xavier per expert
+                trunc(m.router.weight, 0.02)
+                for w in (m.w1, m.w2):
+                    bound = (6.0 / (w.shape[1] + w.shape[2])) ** 0.5
+                    w.copy_(torch.rand(w.shape, generator=g) * (2 * bound) - bound)
         if self.cfg.num_registers > 0:
             trunc(self.registers, 0.02)
         if self.cfg.scale_aware:
@@ -361,17 +388,25 @@ class PatchViT(nn.Module):
         return x
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run_blocks_with_aux(x)[0]
+
+    def run_blocks_with_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block stack; returns (tokens, the mean MoE load-balance loss
+        over the MoE blocks, or None without MoE)."""
         remat = self.cfg.use_grad_checkpoint and self.training and torch.is_grad_enabled()
         generators = list({id(m.generator): m.generator for m in self.lora_layers()
                            if m.generator is not None}.values()) if remat else []
+        auxes = []
         for blk in self.blocks:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    blk, x, use_reentrant=False,
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    blk.forward_with_aux, x, use_reentrant=False,
                     context_fn=lambda: _replay_generators(generators))
             else:
-                x = blk(x)
-        return x
+                x, aux = blk.forward_with_aux(x)
+            if aux is not None:
+                auxes.append(aux)
+        return x, (sum(auxes) / len(auxes) if auxes else None)
 
     def enable_fused_attn(self) -> None:
         """Switch every block to the fused attention half-block from now on:
@@ -385,7 +420,13 @@ class PatchViT(nn.Module):
         return self.norm(x.float())
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.run_final_norm(self.run_blocks(self.embed(x, spacing)))
+        return self.forward_with_aux(x, spacing)[0]
+
+    def forward_with_aux(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(all tokens, the mean MoE load-balance loss or None)."""
+        x, aux = self.run_blocks_with_aux(self.embed(x, spacing))
+        return self.run_final_norm(x), aux
 
 
 def _replay_generators(generators: list[torch.Generator]):
@@ -451,8 +492,14 @@ class DinoStudentTeacher(nn.Module):
     def forward_features(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (head output (B, out_dim) f32, all tokens (B, N, dim) f32)."""
-        feats = self.backbone(x, spacing)
-        return self.head(feats[:, 0]), feats
+        return self.forward_features_aux(x, spacing)[:2]
+
+    def forward_features_aux(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None
+                             ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+        """:meth:`forward_features` and the mean MoE load-balance loss (None
+        without MoE)."""
+        feats, aux = self.backbone.forward_with_aux(x, spacing)
+        return self.head(feats[:, 0]), feats, aux
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.forward_features(x, spacing)[0]

@@ -16,8 +16,7 @@ Examples:
 
 Options the port does not have yet raise NotImplementedError naming the
 module that brings them: model, pipeline, expert and sequence parallelism
-and multi-process runs (module 13); MoE, MAE, low-precision or factored
-Adam moments and in-loop monitoring (module 11).
+and multi-process runs (module 13).
 """
 
 from __future__ import annotations
@@ -74,10 +73,13 @@ def parse_args(argv=None):
     p.add_argument("--fused-attn", action="store_true",
                    help="fused LN->QKV->attention->proj half-block kernel (ops/fused_attn_block.py)")
     p.add_argument("--moe-experts", type=int, default=0,
-                   help="Switch-style top-1 MoE MLP with N experts (not ported: module 11)")
+                   help="Switch-style top-1 MoE MLP with N experts in every --moe-every'th block "
+                        "(models/moe.py); 0 = dense")
     p.add_argument("--moe-every", type=int, default=2)
-    p.add_argument("--moe-capacity", type=float, default=1.25)
-    p.add_argument("--moe-aux-weight", type=float, default=0.01)
+    p.add_argument("--moe-capacity", type=float, default=1.25,
+                   help="expert capacity factor (tokens/expert multiplier)")
+    p.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="weight of the Switch load-balance loss")
     p.add_argument("--expert-parallel", type=int, default=1, help="not ported: module 13")
     p.add_argument("--sequence-parallel", action="store_true", help="not ported: module 13")
     # training
@@ -108,13 +110,15 @@ def parse_args(argv=None):
     p.add_argument("--scale-gamma-init", type=float, default=1.0,
                    help="ScaleEmbedding LayerNorm gamma init")
     p.add_argument("--mu-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="AdamW first-moment storage dtype (bfloat16 not ported: module 11)")
+                   help="Adam first-moment storage dtype")
     p.add_argument("--nu-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="AdamW second-moment storage dtype (bfloat16 not ported: module 11)")
+                   help="Adam second-moment storage dtype")
     p.add_argument("--ckpt-timeout", type=float, default=0.0,
                    help="watchdog (seconds) on every blocking checkpoint op; 0 disables. A "
                         "wedged save is abandoned and the process exits rc=3 after training")
-    p.add_argument("--factored-nu", action="store_true", help="not ported: module 11")
+    p.add_argument("--factored-nu", action="store_true",
+                   help="store the Adam second moment rank-1 factored (Adafactor-style row/column "
+                        "EMAs) for >=2-D params")
     p.add_argument("--seed", type=int, default=0)
     # data
     p.add_argument("--z-stride", type=int, default=1)
@@ -140,7 +144,7 @@ def parse_args(argv=None):
     # ops
     p.add_argument("--ckpt-every", type=int, default=100)
     p.add_argument("--monitor-every", type=int, default=0,
-                   help="in-loop attention/health snapshots every N steps (not ported: module 11)")
+                   help="in-loop attention/health snapshots every N steps into run_dir/monitor")
     p.add_argument("--ckpt-keep-last", type=int, default=5)
     p.add_argument("--log-json", action="store_true")
     p.add_argument("--metric-flush-steps", type=int, default=64,
@@ -165,18 +169,14 @@ def parse_args(argv=None):
 
 def reject_unported_flags(args) -> None:
     """Raise for a flag whose feature the port does not have yet, naming the
-    module of the port's plan that brings it. The flags that set a
-    TrainConfig field (--loss-type mae, --mu-dtype, --nu-dtype,
-    --factored-nu, --pipeline-parallel) are refused by the train state's
-    own check."""
+    module of the port's plan that brings it. --pipeline-parallel sets a
+    TrainConfig field and is refused by the train state's own check."""
     for flag, given, module in (("--model-parallel", args.model_parallel > 1, 13),
                                 ("--expert-parallel", args.expert_parallel > 1, 13),
                                 ("--sequence-parallel", args.sequence_parallel, 13),
                                 ("--dist-coordinator", args.dist_coordinator is not None, 13),
                                 ("--dist-processes", args.dist_processes > 1, 13),
-                                ("--dist-process-id", args.dist_process_id >= 0, 13),
-                                ("--moe-experts", args.moe_experts > 0, 11),
-                                ("--monitor-every", args.monitor_every > 0, 11)):
+                                ("--dist-process-id", args.dist_process_id >= 0, 13)):
         if given:
             raise NotImplementedError(f"{flag} is not ported to dinox_torch yet: module {module}")
 
@@ -313,6 +313,30 @@ def reconcile_resume_model_config(mcfg, stored: dict):
     return mcfg
 
 
+def monitor_hook(args, cfg: TrainConfig, loader):
+    """The ``on_step`` hook of ``--monitor-every``: a TrainingMonitor on the
+    first 8 slices of the loader, or 8 synthetic canvases from seed 0."""
+    from dinox_torch.train.monitor_hook import TrainingMonitor
+
+    if loader is not None:
+        n_probe = min(8, len(loader.source))
+        probe_px = np.stack([loader.source.get(i)[0] for i in range(n_probe)])
+        probe_sp = np.asarray([[r.spacing_x, r.spacing_y, r.spacing_z]
+                               for r in loader.source.rows[:n_probe]], np.float32)
+    else:
+        rng = np.random.default_rng(0)
+        probe_px = rng.integers(25000, 41000, (8, args.canvas, args.canvas, 3), dtype=np.uint16)
+        probe_sp = rng.uniform(0.4, 3.0, (8, 3)).astype(np.float32)
+    monitor = TrainingMonitor(args.run_dir, cfg.model.replace(img_size=cfg.img_size), probe_px,
+                              probe_sp, every=args.monitor_every,
+                              tensorboard=not args.no_tensorboard)
+
+    def on_step(step, _metrics, state) -> None:
+        monitor.maybe_snapshot(step, state.student)
+
+    return on_step
+
+
 def main(argv=None) -> int:
     t_main = time.monotonic()
     args = parse_args(argv)
@@ -326,6 +350,9 @@ def main(argv=None) -> int:
         fused_attn=args.fused_attn,
         gelu_approx=args.gelu_approx or args.gelu == "tanh",
         scale_gamma_init=args.scale_gamma_init,
+        moe_experts=args.moe_experts,
+        moe_every=args.moe_every,
+        moe_capacity_factor=args.moe_capacity,
     )
     # Resolve resume BEFORE building state: the resumed run's stored model
     # config wins over CLI-rebuilt fields (reconcile_resume_model_config).
@@ -450,6 +477,9 @@ def main(argv=None) -> int:
             n = start_batch + (state.step - start_step) * args.accumulation_steps
             return start_epoch + n // per_epoch, n % per_epoch
     step_fn = build_train_step(cfg, device=device)
+    on_step = None
+    if args.monitor_every > 0:
+        on_step = monitor_hook(args, cfg, loader)
 
     args.run_dir.mkdir(parents=True, exist_ok=True)
     (args.run_dir / "provenance.json").write_text(json.dumps(provenance, indent=2))
@@ -473,6 +503,7 @@ def main(argv=None) -> int:
             anomaly_spike_floor=args.anomaly_spike_floor,
             tensorboard=not args.no_tensorboard,
             loader_position=loader_position,
+            on_step=on_step,
             profile_steps=args.profile_steps,
             profile_start=args.profile_start,
         )

@@ -7,9 +7,14 @@ temporary name and renamed into place (a crash leaves no half checkpoint):
 
     ckpt/<step>/state.safetensors   every tensor of the TrainState:
                                     student.<name>, teacher.<name>, center,
-                                    step, optimizer.<name>.<exp_avg |
-                                    exp_avg_sq | step>, keyed by the
-                                    student's parameter names
+                                    step, optimizer.<name>.<key> for each
+                                    entry of the optimizer's state (step,
+                                    exp_avg, exp_avg_sq; a factored nu's
+                                    exp_avg_sq_r and exp_avg_sq_c, the r
+                                    and c of the parameter's JAX-package
+                                    layout, see train.optim), keyed by the
+                                    student's parameter names, each in its
+                                    own dtype (bfloat16 moments as BF16)
     ckpt/<step>/meta.json           {"step", "config", "loader_epoch",
                                     "loader_batch"}
 
@@ -45,7 +50,7 @@ import numpy as np
 import torch
 
 from dinox_torch.train.state import TrainState
-from dinox_torch.zoo.safetensors_io import load_file, save_file
+from dinox_torch.zoo.safetensors_io import load_file, save_file, torch_to_numpy
 
 log = logging.getLogger(__name__)
 
@@ -72,8 +77,10 @@ def state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
 
 def load_state_tensors(state: TrainState, arrays: dict) -> TrainState:
     """Copy a checkpoint's *arrays* (numpy, by :func:`state_tensors` names)
-    into *state*, in place, exactly. The optimizer's ``step`` counts stay
-    on the CPU, where ``torch.optim.AdamW`` keeps them unless capturable or
+    into *state*, in place, exactly: each optimizer entry in the dtype the
+    optimizer stores it in (``state_dtype``; bfloat16 reads back exactly
+    from its float32 widening). The optimizer's ``step`` counts stay on the
+    CPU, where ``torch.optim.AdamW`` keeps them unless capturable or
     fused."""
     def part(prefix: str) -> dict[str, torch.Tensor]:
         return {k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items() if k.startswith(prefix)}
@@ -84,13 +91,19 @@ def load_state_tensors(state: TrainState, arrays: dict) -> TrainState:
     state.step = int(arrays["step"])
     opt = part("optimizer.")
     on_device = any(g.get("capturable") or g.get("fused") for g in state.optimizer.param_groups)
+    dtype_of = getattr(state.optimizer, "state_dtype", lambda key: None)
     state.optimizer.state.clear()
     for name, p in state.student.named_parameters():
         keys = [k for k in opt if k.rsplit(".", 1)[0] == name]
         if keys:
-            state.optimizer.state[p] = {
-                k.rsplit(".", 1)[1]: opt.pop(k).to(p.device)
-                if not k.endswith(".step") or on_device else opt.pop(k).clone() for k in keys}
+            entry = {}
+            for k in keys:
+                key, value = k.rsplit(".", 1)[1], opt.pop(k)
+                if key == "step" and not on_device:
+                    entry[key] = value.clone()
+                else:
+                    entry[key] = value.to(p.device, dtype_of(key) or value.dtype)
+            state.optimizer.state[p] = entry
     if opt:
         raise KeyError(f"checkpoint holds optimizer state of unknown parameters: {sorted(opt)[:4]}")
     return state
@@ -216,7 +229,7 @@ class CheckpointManager:
         host, snap, events = snapshot
         if snap:
             host = {**host, **self._to_host(snap, events)}
-        arrays = {k: v.numpy() for k, v in host.items()}
+        arrays = {k: torch_to_numpy(v) for k, v in host.items()}
         tmp = self.ckpt_dir / f".tmp-{step}-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()

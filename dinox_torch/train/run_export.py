@@ -4,7 +4,8 @@ port's ``dinox_tpu.train.run_export``.
 A run directory of the port holds ``config.json`` (the TrainConfig) and
 ``ckpt/<step>/state.safetensors`` + ``meta.json``
 (:mod:`dinox_torch.train.checkpoint`). :func:`load_backbone_from_run` reads
-only the ``student.backbone.*`` (or ``teacher.backbone.*``) tensors of the
+only the ``student.backbone.*`` (or ``teacher.backbone.*``; an MAE run's
+``student.encoder.*``) tensors of the
 state file, each at its own offset, and moves only those to the device:
 the teacher, the DINO head and both Adam moments never leave the disk (a
 ViT-G state is ~14 GB in float32). The JAX package's run directories hold
@@ -81,10 +82,12 @@ def load_backbone_from_run(run_dir: str | Path, step: Optional[int] = None,
     if cfg.pipeline_parallel > 1:
         raise NotImplementedError("pipeline-parallel run dirs are not ported to dinox_torch yet: "
                                   "module 13")
-    prefix = f"{source}.backbone."
+    mae = cfg.loss_type == "mae"  # the MAE student's backbone is its encoder
+    prefix = f"{source}.encoder." if mae else f"{source}.backbone."
     arrays = load_file(_checkpoint_dir(run_dir, step) / STATE_FILE,
                        keys=lambda name: name.startswith(prefix))
-    model = LoadedModel(cfg.model.replace(img_size=cfg.img_size), device)
+    mcfg = cfg.model.replace(img_size=cfg.img_size)
+    model = LoadedModel(mcfg.replace(scale_aware=False) if mae else mcfg, device)
     model.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items()},
                           strict=True)
     return model

@@ -8,7 +8,13 @@ b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, decoupled weight decay
 on every parameter, and the LR of the schedule at the optimizer step (0 for
 the first update). ``scale_lr_mult`` scales the LR, and so the decay, of
 the ``scale_embed.*`` parameter group, as the JAX package's masked scale of
-the final update does.
+the final update does. ``mu_dtype``/``nu_dtype`` other than float32 and
+``factored_nu`` take the optimizers of ``train.optim`` (the JAX package's
+choice of optax chain for each), with the same groups.
+
+For ``loss_type="mae"`` the student is a ``models.mae.MaeModel``
+({encoder, decoder}); the teacher is its unused frozen copy, kept so that
+the state has one shape for every objective, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,11 +28,13 @@ import numpy as np
 import torch
 
 from dinox_torch.models.config import MODEL_CONFIGS, ModelConfig
+from dinox_torch.models.mae import MaeModel
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import AugConfig
+from dinox_torch.train.optim import DTYPES, build_adam
 from dinox_torch.train.schedule import get_lr
 from dinox_torch.utils.platform import resolve_device
-from dinox_torch.zoo.interop import jax_to_torch_student
+from dinox_torch.zoo.interop import jax_layout, jax_to_torch_mae, jax_to_torch_student
 
 
 @dataclass(frozen=True)
@@ -84,18 +92,18 @@ class TrainConfig:
 
 def reject_unported(cfg: TrainConfig) -> None:
     """Raise for the options the port does not have yet, naming the module
-    of the port's plan that brings each."""
-    for field, unported, module in (
-            ("mu_dtype", cfg.mu_dtype != "float32", 11),
-            ("nu_dtype", cfg.nu_dtype != "float32", 11),
-            ("factored_nu", cfg.factored_nu, 11),
-            ("loss_type", cfg.loss_type == "mae", 11),
-            ("pipeline_parallel", cfg.pipeline_parallel > 1, 13)):
-        if unported:
-            raise NotImplementedError(f"{field}={getattr(cfg, field)!r} is not ported to dinox_torch "
-                                      f"yet: module {module}")
-    if cfg.loss_type not in ("dino", "simclr"):
+    of the port's plan that brings each, and for unknown values."""
+    if cfg.pipeline_parallel > 1:
+        raise NotImplementedError(f"pipeline_parallel={cfg.pipeline_parallel!r} is not ported to "
+                                  "dinox_torch yet: module 13")
+    if cfg.loss_type not in ("dino", "simclr", "mae"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
+    for field in ("mu_dtype", "nu_dtype"):
+        if getattr(cfg, field) not in DTYPES:
+            raise ValueError(f"{field} must be one of {sorted(DTYPES)}, got {getattr(cfg, field)!r}")
+
+
+Student = DinoStudentTeacher | MaeModel
 
 
 @dataclass
@@ -103,30 +111,34 @@ class TrainState:
     """The whole training state. ``step`` counts optimizer steps."""
 
     step: int
-    student: DinoStudentTeacher
-    teacher: DinoStudentTeacher
-    optimizer: torch.optim.AdamW
+    student: Student
+    teacher: Student
+    optimizer: torch.optim.Optimizer
     center: torch.Tensor
 
 
-def make_optimizer(cfg: TrainConfig, student: DinoStudentTeacher) -> torch.optim.AdamW:
-    """AdamW over the student's parameters in two groups: ``scale_embed.*``
-    (``lr_mult = scale_lr_mult``) and the rest (``lr_mult = 1``). The train
-    step sets each group's ``lr`` to the schedule's LR times its multiplier."""
+def make_optimizer(cfg: TrainConfig, student: Student) -> torch.optim.Optimizer:
+    """The optimizer over the student's parameters in two groups:
+    ``scale_embed.*`` (``lr_mult = scale_lr_mult``) and the rest
+    (``lr_mult = 1``). The train step sets each group's ``lr`` to the
+    schedule's LR times its multiplier. ``torch.optim.AdamW`` for float32
+    moments; ``train.optim`` 's optimizers for the moment options (the
+    factored one over each parameter's JAX-package layout)."""
     scale, rest = [], []
     for name, p in student.named_parameters():
         (scale if ".scale_embed." in f".{name}" else rest).append(p)
     groups = [{"params": rest, "lr_mult": 1.0}]
     if scale:
         groups.append({"params": scale, "lr_mult": cfg.scale_lr_mult})
-    return torch.optim.AdamW(groups, lr=cfg.lr_at(0), betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=cfg.weight_decay)
+    layouts = {p: jax_layout(name, p.ndim) for name, p in student.named_parameters()}
+    return build_adam(groups, cfg.lr_at(0), cfg.weight_decay, cfg.mu_dtype, cfg.nu_dtype,
+                      cfg.factored_nu, layouts)
 
 
-def apply_gradients(cfg: TrainConfig, optimizer: torch.optim.AdamW,
+def apply_gradients(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
                     params: list[torch.Tensor], grads: list[torch.Tensor], step: int) -> None:
-    """One AdamW update of *params* (the optimizer's, in order) from *grads*
-    at the schedule's LR for optimizer step *step*."""
+    """One update of *params* (the optimizer's, in order) from *grads* at
+    the schedule's LR for optimizer step *step*."""
     lr = cfg.lr_at(step)
     for group in optimizer.param_groups:
         group["lr"] = lr * group["lr_mult"]
@@ -141,10 +153,18 @@ def _model_config(cfg: TrainConfig) -> ModelConfig:
     return cfg.model.replace(img_size=cfg.img_size)
 
 
-def _teacher_of(student: DinoStudentTeacher) -> DinoStudentTeacher:
+def _teacher_of(student: Student) -> Student:
     teacher = copy.deepcopy(student)
     teacher.requires_grad_(False)
     return teacher.eval()
+
+
+def _student(cfg: TrainConfig, dev: torch.device, seed: int = 0) -> Student:
+    g = torch.Generator().manual_seed(seed)
+    if cfg.loss_type == "mae":
+        return MaeModel(_model_config(cfg), mask_ratio=cfg.mae_mask_ratio, generator=g,
+                        device=dev).train()
+    return DinoStudentTeacher(_model_config(cfg), generator=g, device=dev).train()
 
 
 def create_train_state(cfg: TrainConfig, seed: int = 0,
@@ -154,35 +174,82 @@ def create_train_state(cfg: TrainConfig, seed: int = 0,
     *device* is ``"cpu"``."""
     reject_unported(cfg)
     dev = resolve_device(device)
-    student = DinoStudentTeacher(_model_config(cfg), generator=torch.Generator().manual_seed(seed),
-                                 device=dev).train()
+    student = _student(cfg, dev, seed)
     return TrainState(step=0, student=student, teacher=_teacher_of(student),
                       optimizer=make_optimizer(cfg, student),
                       center=torch.zeros((1, cfg.model.out_dim), dtype=torch.float32, device=dev))
 
 
-def _tensors(tree: Mapping[str, Any], dev: torch.device) -> dict[str, torch.Tensor]:
-    return {k: torch.tensor(v, device=dev) for k, v in jax_to_torch_student(tree).items()}
+def _to_torch(cfg: TrainConfig):
+    """The interop of the student's tree: the MAE model's or the DINO student's."""
+    return jax_to_torch_mae if cfg.loss_type == "mae" else jax_to_torch_student
+
+
+def _tensors(cfg: TrainConfig, tree: Mapping[str, Any], dev: torch.device,
+             dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+    return {k: torch.tensor(v, device=dev).to(dtype) for k, v in _to_torch(cfg)(tree).items()}
 
 
 def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
                    device: torch.device | str | None = None) -> TrainState:
     """The port's state from a JAX-package state given as numpy: a mapping
     with ``step``, ``student`` and ``teacher`` (parameter trees), ``center``,
-    and the AdamW moments ``mu`` and ``nu`` (trees shaped like the student)
-    with their ``count``. Both packages then start from the same state."""
+    and the Adam moments ``mu`` and ``nu`` (trees shaped like the student)
+    with their ``count``. Both packages then start from the same state.
+
+    For ``factored_nu`` the ``nu`` tree holds JAX's ``{"r", "c"}`` for a
+    parameter of two or more axes: they become ``exp_avg_sq_r`` and
+    ``exp_avg_sq_c`` unchanged, since the port factors each parameter over
+    the trailing axes of its JAX layout (``train.optim.AdamFactored``; for a
+    dense weight the port's ``(out, in)`` rows are JAX's columns, so JAX's
+    ``r`` runs along the port's input axis). Moments are stored in
+    ``mu_dtype``/``nu_dtype``."""
     reject_unported(cfg)
     dev = resolve_device(device)
-    student = DinoStudentTeacher(_model_config(cfg), device=dev).train()
-    student.load_state_dict(_tensors(tree["student"], dev), strict=True)
+    student = _student(cfg, dev)
+    student.load_state_dict(_tensors(cfg, tree["student"], dev), strict=True)
     teacher = _teacher_of(student)
-    teacher.load_state_dict(_tensors(tree["teacher"], dev), strict=True)
+    teacher.load_state_dict(_tensors(cfg, tree["teacher"], dev), strict=True)
     opt = make_optimizer(cfg, student)
-    mu, nu = _tensors(tree["mu"], dev), _tensors(tree["nu"], dev)
-    count = int(np.asarray(tree["count"]))
+    mu = _tensors(cfg, tree["mu"], dev, DTYPES[cfg.mu_dtype])
+    count = torch.tensor(float(int(np.asarray(tree["count"]))))
+    if cfg.factored_nu:
+        nu, factors = _factored_nu(cfg, tree["nu"], dev)
+    else:
+        nu, factors = _tensors(cfg, tree["nu"], dev, DTYPES[cfg.nu_dtype]), {}
     for name, p in student.named_parameters():
-        opt.state[p] = {"step": torch.tensor(float(count)), "exp_avg": mu[name],
-                        "exp_avg_sq": nu[name]}
+        st = {"step": count.clone(), "exp_avg": mu[name]}
+        if name in factors:
+            st["exp_avg_sq_r"], st["exp_avg_sq_c"] = factors[name]
+        else:
+            st["exp_avg_sq"] = nu[name]
+        opt.state[p] = st
     center = torch.tensor(np.asarray(tree["center"], np.float32), device=dev)
     return TrainState(step=int(np.asarray(tree["step"])), student=student, teacher=teacher,
                       optimizer=opt, center=center)
+
+
+def _factored_nu(cfg: TrainConfig, tree: Mapping[str, Any], dev: torch.device
+                 ) -> tuple[dict[str, torch.Tensor], dict[str, tuple[torch.Tensor, torch.Tensor]]]:
+    """A JAX factored nu tree -> (the full nu of the other parameters, {name:
+    (r, c)} of the factored ones), by the port's parameter names. The names
+    come from the interop run on a tree whose leaves are their indices
+    (arrays of ones in every axis, which every transpose leaves as they are)."""
+    leaves: list[Any] = []
+
+    def mark(node: Any) -> Any:
+        if isinstance(node, Mapping) and set(node) != {"r", "c"}:
+            return {k: mark(v) for k, v in node.items()}
+        leaves.append(node)
+        ndim = np.ndim(node["r"]) + 1 if isinstance(node, Mapping) else np.ndim(node)
+        return np.full((1,) * ndim, len(leaves) - 1, np.float32)
+
+    full, factors = {}, {}
+    for name, index in _to_torch(cfg)(mark(tree)).items():
+        leaf = leaves[int(index.reshape(-1)[0])]
+        if isinstance(leaf, Mapping):
+            factors[name] = tuple(torch.tensor(np.asarray(leaf[k], np.float32), device=dev)
+                                  for k in ("r", "c"))
+        else:
+            full[name] = torch.tensor(np.asarray(leaf, np.float32), device=dev)
+    return full, factors

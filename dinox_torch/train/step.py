@@ -9,10 +9,17 @@ with the centre update, Gram anchoring and KoLeo, and the gradients. The
 gradients are averaged over the micro-batches and the centre chains
 through them. Then the global gradient norm (a metric; nothing is clipped),
 AdamW at the schedule's LR, and the teacher EMA from the *updated* student.
-SimCLR trains the student alone against a frozen teacher.
+SimCLR trains the student alone against a frozen teacher. With MoE
+(``moe_experts > 0``) the student's mean load-balance loss over its MoE
+blocks is added with weight ``moe_aux_weight`` (metric ``loss_moe_aux``);
+the teacher routes too, but its loss is not used. MAE
+(``loss_type="mae"``) runs the ``MaeModel`` student alone on the views
+(no teacher forward, no EMA), with ``embed_std`` the std of its
+prediction.
 
 Randomness: a CPU ``torch.Generator`` per (train_seed, step, micro-batch)
-for the augmentation and another for the spacing jitter.
+for the augmentation, another for the spacing jitter and a third for the
+MAE mask noise.
 """
 
 from __future__ import annotations
@@ -21,11 +28,12 @@ from typing import Callable, Optional
 
 import torch
 
+from dinox_torch.models.mae import mae_loss
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.train.losses import dino_loss, gram_anchoring_loss, koleo_loss, simclr_loss
 from dinox_torch.train.schedule import get_lr_tensor
-from dinox_torch.train.state import TrainConfig, TrainState, apply_gradients, reject_unported
+from dinox_torch.train.state import Student, TrainConfig, TrainState, apply_gradients, reject_unported
 from dinox_torch.utils.platform import resolve_device
 from dinox_torch.utils.rng import seeded_generator
 
@@ -33,19 +41,28 @@ METRICS = ("loss", "loss_dino", "loss_gram", "loss_koleo", "loss_simclr", "loss_
            "teacher_entropy", "student_entropy", "embed_std", "grad_norm", "lr")
 
 
-def micro_loss(student: DinoStudentTeacher, teacher: DinoStudentTeacher, center: torch.Tensor,
+def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
                batch: torch.Tensor, spacing: Optional[torch.Tensor], cfg: TrainConfig,
-               jitter: Optional[torch.Generator] = None
+               jitter: Optional[torch.Generator] = None,
+               mask_noise: Optional[torch.Tensor | torch.Generator] = None
                ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """Loss over one augmented (2B, S, S, 3) micro-batch with spacing (B, 3).
+    *mask_noise* is MAE's (2B, L) noise or a generator to draw it from.
     Returns (loss, new centre, metrics)."""
     zero = torch.zeros((), dtype=torch.float32, device=batch.device)
+    if cfg.loss_type == "mae":
+        pred, mask = student(batch, mask_noise)
+        loss = mae_loss(pred, batch, mask, cfg.model.patch)
+        metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
+                       loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
+                       embed_std=torch.std(pred.float(), correction=0), loss=loss)
+        return loss, center, {k: v.detach() for k, v in metrics.items()}
     sp2 = torch.cat([spacing, spacing], dim=0) if cfg.model.scale_aware else None
     if sp2 is not None and cfg.spacing_jitter > 0:
         noise = torch.randn(sp2.shape, generator=jitter).to(sp2.device)
         sp2 = sp2 * torch.exp(cfg.spacing_jitter * noise)
 
-    s_out, s_feats = student.forward_features(batch, sp2)
+    s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
     if cfg.loss_type == "simclr":
         b = s_out.shape[0] // 2
         loss = simclr_loss(s_out[:b], s_out[b:], cfg.student_temp)
@@ -64,6 +81,9 @@ def micro_loss(student: DinoStudentTeacher, teacher: DinoStudentTeacher, center:
         metrics = dict(loss_dino=d.loss, loss_gram=g, loss_koleo=k, loss_simclr=zero,
                        loss_mae=zero, teacher_entropy=d.teacher_entropy,
                        student_entropy=d.student_entropy)
+    if moe_aux is not None:
+        loss = loss + cfg.moe_aux_weight * moe_aux
+        metrics["loss_moe_aux"] = moe_aux
     # Collapse telemetry: per-dim std of the CLS embedding over the batch.
     metrics["embed_std"] = torch.mean(torch.std(s_feats[:, 0].float(), dim=0, correction=0))
     metrics["loss"] = loss
@@ -72,14 +92,15 @@ def micro_loss(student: DinoStudentTeacher, teacher: DinoStudentTeacher, center:
 
 def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.Tensor,
                          spacing: Optional[torch.Tensor], cfg: TrainConfig,
-                         jitter: Optional[torch.Generator] = None
+                         jitter: Optional[torch.Generator] = None,
+                         mask_noise: Optional[torch.Tensor | torch.Generator] = None
                          ) -> tuple[list[torch.Tensor], torch.Tensor, dict[str, torch.Tensor]]:
     """One micro-step: the gradients of :func:`micro_loss` with respect to
     the student's parameters (in ``named_parameters()`` order; zeros for a
     parameter the loss does not reach), the new centre and the metrics."""
     params = list(state.student.parameters())
     loss, new_center, metrics = micro_loss(state.student, state.teacher, center, batch, spacing,
-                                           cfg, jitter)
+                                           cfg, jitter, mask_noise)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return grads, new_center.detach(), metrics
@@ -112,7 +133,8 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
             views = augment(pixels[a], seeded_generator(cfg.train_seed, state.step, a, 0), aug_cfg)
             batch = views.reshape((-1,) + tuple(views.shape[2:]))
             g, center, metrics = micro_loss_and_grads(
-                state, center, batch, spacing[a], cfg, seeded_generator(cfg.train_seed, state.step, a, 1))
+                state, center, batch, spacing[a], cfg, seeded_generator(cfg.train_seed, state.step, a, 1),
+                seeded_generator(cfg.train_seed, state.step, a, 2))
             grads = g if grads is None else torch._foreach_add(grads, g)
             seq.append(metrics)
         if accum > 1:

@@ -4,8 +4,11 @@
 hub-format directory (``config.json`` + ``backbone.safetensors`` or
 ``backbone.pth``). Weights are timm-style state dicts, the port's own
 parameter names, so hub directories written by either package load in the
-other. A HuggingFace Hub id is refused: the port neither reaches the network
-nor depends on ``huggingface_hub``.
+other. MoE backbones use hub format v2, as the JAX package writes it:
+``weights_format: "jax"`` and the MoE placement knobs in config.json, and
+``backbone.safetensors`` keyed by flat flax paths (``blocks_3/moe/w1``),
+mapped through ``zoo.interop``. A HuggingFace Hub id is refused: the port
+neither reaches the network nor depends on ``huggingface_hub``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,13 @@ from dinox_torch.models.config import HUB_DEFAULT_CONFIG, ModelConfig
 from dinox_torch.models.vit import PatchViT
 from dinox_torch.utils.platform import resolve_device
 from dinox_torch.zoo import safetensors_io
-from dinox_torch.zoo.interop import migrate_state_dict, needs_migration, strip_prefix
+from dinox_torch.zoo.interop import (
+    jax_to_torch_backbone,
+    migrate_state_dict,
+    needs_migration,
+    strip_prefix,
+    torch_to_jax_backbone,
+)
 
 log = logging.getLogger(__name__)
 
@@ -100,6 +109,29 @@ def _cfg_from_dict(config: dict[str, Any]) -> ModelConfig:
         moe_every=int(merged.get("moe_every", 2)),
         moe_capacity_factor=float(merged.get("moe_capacity_factor", 1.25)),
     )
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested flax parameters -> {'blocks_3/moe/w1': float32 array}, hub v2's keys."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, path))
+        else:
+            out[path] = np.ascontiguousarray(np.asarray(v, dtype=np.float32))
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, Any]) -> dict[str, Any]:
+    tree: dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
 
 
 def _load_torch_payload(path: Path, *, trusted: bool = False) -> Any:
@@ -183,28 +215,34 @@ def load_from_training_checkpoint(
 def load_from_hub_dir(model_dir: str | Path, *,
                       device: torch.device | str | None = None) -> LoadedModel:
     """Hub format: config.json + backbone.safetensors (preferred) or
-    backbone.pth, timm-style keys; strict load."""
+    backbone.pth, timm-style keys, or (``weights_format: "jax"``, hub v2)
+    backbone.safetensors with flat flax paths; strict load."""
     device = resolve_device(device)
     model_dir = Path(model_dir)
     config_path = model_dir / "config.json"
     if not config_path.exists():
         raise FileNotFoundError(f"config.json not found in {model_dir}")
     config = json.loads(config_path.read_text())
-    if config.get("weights_format", "torch") == "jax":
-        raise NotImplementedError(
-            f"{model_dir}: weights_format='jax' (MoE hub format) is not ported to dinox_torch yet")
+    jax_format = config.get("weights_format", "torch") == "jax"
     cfg = _cfg_from_dict(config)
 
     st_path = model_dir / "backbone.safetensors"
     pth_path = model_dir / "backbone.pth"
     if st_path.exists():
         sd: Mapping[str, Any] = safetensors_io.load_file(st_path)
-    elif pth_path.exists():
+    elif pth_path.exists() and not jax_format:
         sd = _load_torch_payload(pth_path)
+    elif jax_format:
+        raise FileNotFoundError(f"{model_dir}: weights_format='jax' requires backbone.safetensors")
     else:
         raise FileNotFoundError(
             f"No weights in {model_dir}: expected backbone.safetensors or backbone.pth")
-    if needs_migration(sd):
+    if jax_format:
+        if any("." in k for k in sd):  # timm-style keys; flax scope names hold no dots
+            raise ValueError(f"hub checkpoint does not match config: weights_format='jax' "
+                             f"wants flat flax paths, got {sorted(sd)[:3]}")
+        sd = jax_to_torch_backbone(unflatten_tree(sd))
+    elif needs_migration(sd):
         sd = migrate_state_dict(sd)
 
     model = LoadedModel(cfg, device)
@@ -248,20 +286,35 @@ def export_hub_checkpoint(
     use_safetensors: bool = False,
 ) -> Path:
     """Write config.json + backbone weights (timm-style keys, float32) in the
-    hub format, readable by both packages and the reference torch loader."""
+    hub format, readable by both packages and the reference torch loader.
+    An MoE backbone is written in hub format v2, as the JAX package writes
+    it: flat flax paths in backbone.safetensors and ``weights_format:
+    "jax"`` with the MoE knobs in config.json (also in a caller's
+    *config*); its ``.pth`` variant raises before any file is written."""
     out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
     c = model.cfg
+    jax_format = c.moe_experts > 0
+    if jax_format and not use_safetensors:
+        raise NotImplementedError(
+            "torch interop is dense-only: MoE expert stacks have no torch analog in the "
+            "reference architecture. Export with use_safetensors=True (hub format v2, "
+            "weights_format='jax').")
+    out.mkdir(parents=True, exist_ok=True)
     if config is None:
         config = {
             "img_size": c.img_size, "patch": c.patch, "dim": c.dim, "depth": c.depth,
             "heads": c.heads, "mlp_ratio": c.mlp_ratio, "num_registers": c.num_registers,
             "scale_aware": c.scale_aware, "gelu_approx": c.gelu_approx,
         }
+    if jax_format:
+        config = {**config, "weights_format": "jax", "moe_experts": c.moe_experts,
+                  "moe_every": c.moe_every, "moe_capacity_factor": c.moe_capacity_factor}
     (out / "config.json").write_text(json.dumps(config, indent=2))
     sd = {k: v.detach().to("cpu", torch.float32).contiguous().clone()
           for k, v in model.state_dict().items()}
-    if use_safetensors:
+    if jax_format:
+        safetensors_io.save_file(flatten_tree(torch_to_jax_backbone(sd)), out / "backbone.safetensors")
+    elif use_safetensors:
         safetensors_io.save_file({k: v.numpy() for k, v in sd.items()}, out / "backbone.safetensors")
     else:
         torch.save(sd, out / "backbone.pth")

@@ -16,10 +16,18 @@ trees) across into the port unchanged in value:
     norm.{weight,bias}                     norm.{scale,bias}
     blocks.N.<mod>.<s>.lora_A.weight (r,i) blocks_N.<mod>.<s>.lora_A (i,r)
     blocks.N.<mod>.<s>.lora_B.weight (o,r) blocks_N.<mod>.<s>.lora_B (r,o)
+    blocks.N.moe.router.weight (E,D)       blocks_N.moe.router.kernel (D,E)
+    blocks.N.moe.{w1,b1,w2,b2}             blocks_N.moe.{w1,b1,w2,b2} (JAX's
+                                           (E,D,H), (E,1,H), (E,H,D), (E,1,D))
 
-and, for the DINO student (:func:`jax_to_torch_student`), ``backbone.*``
+(an MoE block has ``moe`` where a dense block has ``mlp``), and, for the
+DINO student (:func:`jax_to_torch_student`), ``backbone.*``
 for the tree's ``backbone`` and ``head.{0,2}.{weight,bias}`` for
-``head.{fc1,fc2}.{kernel,bias}``.
+``head.{fc1,fc2}.{kernel,bias}``; for the MAE model (:func:`jax_to_torch_mae`)
+``encoder.*`` for the tree's ``encoder`` and ``decoder.*`` for its
+``decoder`` (blocks as above, ``decoder_{embed,pred}.{weight,bias}``,
+``decoder_norm.{weight,bias}`` and ``mask_token``). :func:`jax_layout` gives
+the permutation of a port parameter's axes that yields its JAX layout.
 
 Also the legacy-key migration (nn.MultiheadAttention / nn.Sequential names
 -> timm-style) so pre-migration checkpoints load.
@@ -138,6 +146,11 @@ def torch_to_jax_backbone(sd: Mapping[str, Any]) -> dict[str, Any]:
                     put([blk, "mlp", rest[1], "kernel"], v.T)
                 else:
                     put([blk, "mlp", rest[1], "bias"], v)
+            elif rest == ["moe", "router"]:
+                put([blk, "moe", "router", "kernel" if leaf == "weight" else "bias"],
+                    v.T if leaf == "weight" else v)
+            elif rest == ["moe"] and leaf in ("w1", "b1", "w2", "b2"):
+                put([blk, "moe", leaf], v)
             else:
                 raise KeyError(f"unrecognized block key: {key}")
         else:
@@ -147,17 +160,7 @@ def torch_to_jax_backbone(sd: Mapping[str, Any]) -> dict[str, Any]:
 
 def jax_to_torch_backbone(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """Inverse of :func:`torch_to_jax_backbone`: timm-style keys, float32,
-    C-contiguous numpy values. Dense-only: MoE expert stacks have no
-    timm-style keys."""
-    moe_blocks = [
-        name for name, node in params.items()
-        if name.startswith("blocks_") and isinstance(node, Mapping) and "moe" in node
-    ]
-    if moe_blocks:
-        raise NotImplementedError(
-            "torch interop is dense-only: MoE expert-stacked params in "
-            f"{sorted(moe_blocks)[:3]} have no timm-style keys"
-        )
+    C-contiguous numpy values (MoE expert stacks in JAX's layout)."""
     sd: dict[str, np.ndarray] = {}
 
     def f32(v: Any) -> np.ndarray:
@@ -184,7 +187,15 @@ def jax_to_torch_backbone(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
             for ln in ("norm1", "norm2"):
                 sd[f"blocks.{i}.{ln}.weight"] = f32(node[ln]["scale"])
                 sd[f"blocks.{i}.{ln}.bias"] = f32(node[ln]["bias"])
+            if "moe" in node:
+                moe = node["moe"]
+                sd[f"blocks.{i}.moe.router.weight"] = f32(np.asarray(moe["router"]["kernel"]).T)
+                sd[f"blocks.{i}.moe.router.bias"] = f32(moe["router"]["bias"])
+                for leaf in ("w1", "b1", "w2", "b2"):
+                    sd[f"blocks.{i}.moe.{leaf}"] = f32(moe[leaf])
             for mod, subs in (("attn", ("qkv", "proj")), ("mlp", ("fc1", "fc2"))):
+                if mod not in node:
+                    continue
                 for s in subs:
                     sd[f"blocks.{i}.{mod}.{s}.weight"] = f32(np.asarray(node[mod][s]["kernel"]).T)
                     sd[f"blocks.{i}.{mod}.{s}.bias"] = f32(node[mod][s]["bias"])
@@ -228,3 +239,59 @@ def jax_to_torch_student(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
             sd[f"head.{idx}.bias"] = np.ascontiguousarray(
                 np.asarray(params["head"][sub]["bias"], np.float32))
     return sd
+
+
+_MAE_DENSE = ("decoder_embed", "decoder_pred")
+
+
+def torch_to_jax_mae(sd: Mapping[str, Any]) -> dict[str, Any]:
+    """MaeModel state dict (encoder.* + decoder.*) -> JAX-package tree
+    {'encoder': ..., 'decoder': ...} (numpy leaves)."""
+    enc = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    dec = {k[len("decoder."):]: v for k, v in sd.items() if k.startswith("decoder.")}
+    decoder = torch_to_jax_backbone({k: v for k, v in dec.items() if k.startswith("blocks.")})
+    for k, raw in dec.items():
+        v = _np(raw)
+        sub, _, leaf = k.partition(".")
+        if sub == "mask_token":
+            decoder["mask_token"] = v
+        elif sub in _MAE_DENSE:
+            decoder.setdefault(sub, {})["kernel" if leaf == "weight" else "bias"] = (
+                v.T if leaf == "weight" else v)
+        elif sub == "decoder_norm":
+            decoder.setdefault(sub, {})["scale" if leaf == "weight" else "bias"] = v
+        elif sub != "blocks":
+            raise KeyError(f"unrecognized MAE decoder key: {k}")
+    return {"encoder": torch_to_jax_backbone(enc), "decoder": decoder}
+
+
+def jax_to_torch_mae(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Inverse of :func:`torch_to_jax_mae`: the port's MaeModel state dict."""
+    sd = {f"encoder.{k}": v for k, v in jax_to_torch_backbone(params["encoder"]).items()}
+    dec = params["decoder"]
+    blocks = {k: v for k, v in dec.items() if k.startswith("blocks_")}
+    sd.update({f"decoder.{k}": v for k, v in jax_to_torch_backbone(blocks).items()})
+
+    def f32(v: Any) -> np.ndarray:
+        return np.ascontiguousarray(np.asarray(v, dtype=np.float32))
+
+    sd["decoder.mask_token"] = f32(dec["mask_token"])
+    for sub in _MAE_DENSE:
+        sd[f"decoder.{sub}.weight"] = f32(np.asarray(dec[sub]["kernel"]).T)
+        sd[f"decoder.{sub}.bias"] = f32(dec[sub]["bias"])
+    sd["decoder.decoder_norm.weight"] = f32(dec["decoder_norm"]["scale"])
+    sd["decoder.decoder_norm.bias"] = f32(dec["decoder_norm"]["bias"])
+    return sd
+
+
+def jax_layout(name: str, ndim: int) -> tuple[int, ...]:
+    """The permutation of the axes of the port's parameter *name* (of *ndim*
+    axes) that gives its layout in the JAX package: ``(2, 3, 1, 0)`` for the
+    patch embedding, a transpose for a dense weight or LoRA factor (every
+    2-D ``*.weight``), the identity otherwise (tokens, positional tables,
+    MoE expert stacks, 1-D parameters)."""
+    if name.endswith("patch_embed.weight"):
+        return (2, 3, 1, 0)
+    if ndim == 2 and name.endswith(".weight"):
+        return (1, 0)
+    return tuple(range(ndim))

@@ -60,8 +60,14 @@ def apply_lora(model: DeviceViT, *, rank: int = 8, alpha: float = 16.0,
     Base weights are copied unchanged; A is drawn from *generator* (seed 0
     when None). Every base parameter is frozen (``requires_grad=False``) and
     the factors train, so the physics layers (``FROZEN_SUBTREES``,
-    ``FROZEN_LEAVES``) stay frozen by construction."""
-    targets = tuple(target_modules or DEFAULT_TARGET_MODULES)
+    ``FROZEN_LEAVES``) stay frozen by construction. On an MoE backbone the
+    default targets are attention's alone (``qkv``, ``proj``), as in the
+    JAX package; fc1/fc2 given explicitly adapt the dense blocks only."""
+    if target_modules is None and model.cfg.moe_experts > 0:
+        targets: tuple = ("qkv", "proj")  # MoE: router and experts stay frozen
+        log.info("MoE backbone: LoRA targets default to attention-only %s", list(targets))
+    else:
+        targets = tuple(target_modules or DEFAULT_TARGET_MODULES)
     unknown = set(targets) - set(DEFAULT_TARGET_MODULES)
     if unknown:
         raise ValueError(f"unknown target modules: {sorted(unknown)}")

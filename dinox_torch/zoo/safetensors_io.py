@@ -3,7 +3,9 @@
 Layout: an unsigned 64-bit little-endian header length, a JSON header
 ``{name: {"dtype", "shape", "data_offsets": [begin, end]}, "__metadata__"?}``,
 then the raw little-endian tensor bytes, offsets relative to the end of the
-header. bfloat16 tensors read as float32 (numpy has no bfloat16). A reader
+header. bfloat16 tensors read as float32 (numpy has no bfloat16; the
+widening is exact) and are written from arrays of dtype :data:`BF16`, their
+raw bits (``torch_to_numpy`` makes one from a bfloat16 tensor). A reader
 may pass a filter on the tensor names: only the tensors it keeps are read
 from disk, each at its own offset (a training state is several times the
 size of the backbone a reader wants from it).
@@ -25,6 +27,16 @@ _DTYPES = {
     "I8": np.dtype("i1"), "U8": np.dtype("u1"), "BOOL": np.dtype("?"),
 }
 _NAMES = {v: k for k, v in _DTYPES.items()}
+BF16 = np.dtype([("bf16", "<u2")])  # the raw bits of bfloat16 values
+
+
+def torch_to_numpy(t) -> np.ndarray:
+    """A CPU tensor as numpy for :func:`save_file`; bfloat16 as :data:`BF16`."""
+    import torch
+
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16)
+    return t.numpy()
 
 
 def _read(f, base: int, size: int, name: str, info: dict) -> np.ndarray:
@@ -67,11 +79,15 @@ def save_file(tensors: Mapping[str, np.ndarray], path: str | Path) -> None:
     offset = 0
     for name in sorted(tensors):
         arr = np.asarray(tensors[name])
-        dtype = arr.dtype.newbyteorder("<")
-        if dtype not in _NAMES:
-            raise TypeError(f"{name}: dtype {arr.dtype} has no safetensors name here")
-        arr = np.ascontiguousarray(arr.astype(dtype, copy=False).reshape(-1))  # 0-d keeps its shape below
-        header[name] = {"dtype": _NAMES[dtype], "shape": list(np.shape(tensors[name])),
+        if arr.dtype == BF16:
+            kind, arr = "BF16", np.ascontiguousarray(arr).view("<u2").reshape(-1)
+        else:
+            dtype = arr.dtype.newbyteorder("<")
+            if dtype not in _NAMES:
+                raise TypeError(f"{name}: dtype {arr.dtype} has no safetensors name here")
+            kind = _NAMES[dtype]
+            arr = np.ascontiguousarray(arr.astype(dtype, copy=False).reshape(-1))  # 0-d keeps its shape below
+        header[name] = {"dtype": kind, "shape": list(np.shape(tensors[name])),
                         "data_offsets": [offset, offset + arr.nbytes]}
         arrays.append(arr)
         offset += arr.nbytes

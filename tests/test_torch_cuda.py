@@ -14,7 +14,10 @@ fine-tuning: the eval transform on the card, and a LoRA loss and backward
 of ViT-S through kernel 1 and the dq/dkv pair against plain attention; the
 CIFAR control's RGB views on the card against the CPU and kernel 1 and the
 pair at its (512, 69, 576, 6); LoRA dropout replayed under gradient
-checkpointing with a generator on the card.
+checkpointing with a generator on the card; and module 11: the
+low-precision and factored Adam updates on the card against the CPU, the
+MoE MLP in bf16 on the card against the CPU, and kernel 1 and the pair at
+the MAE encoder's and decoder's shapes.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -893,3 +896,77 @@ def test_lora_dropout_replays_under_grad_checkpoint_on_the_card(card):
     for k in grads[0]:
         torch.testing.assert_close(grads[1][k], grads[0][k], atol=1e-6, rtol=0, msg=k)
     assert torch.equal(ends[0], ends[1])
+
+
+@pytest.mark.parametrize("kind", [dict(mu_dtype="bfloat16"), dict(nu_dtype="bfloat16"),
+                                  dict(mu_dtype="bfloat16", nu_dtype="bfloat16"),
+                                  dict(factored_nu=True)])
+def test_low_precision_update_on_the_card_matches_the_cpu(card, kind):
+    """Three updates of a ViT-T-width student from one state with the same
+    gradients: the moments within one bf16 step of the CPU's (the card's
+    float32 arithmetic may round a moment across a bf16 boundary), the
+    parameters within 1e-6 of each tensor's largest value, plus, where a
+    moment is bf16, lr * 2^-6 (one bf16 step of a moment moves Adam's step
+    by up to 2^-8 of lr)."""
+    from dinox_torch.models.config import ModelConfig
+    from dinox_torch.train.state import apply_gradients
+
+    mcfg = ModelConfig(name="t", img_size=28, patch=14, dim=192, depth=2, heads=3, out_dim=32,
+                       dtype="float32", scale_aware=True)
+    cfg = TrainConfig(model=mcfg, img_size=28, lr=1e-2, warmup_steps=1, max_steps=20, **kind)
+    states = [create_train_state(cfg, seed=0, device=d) for d in ("cpu", "cuda")]
+    g = torch.Generator().manual_seed(5)
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=g) for p in states[0].student.parameters()]
+        for st in states:
+            dev = next(st.student.parameters()).device
+            apply_gradients(cfg, st.optimizer, list(st.student.parameters()),
+                            [x.to(dev) for x in grads], step)
+    low = 2 ** -6 * cfg.lr if "bfloat16" in (cfg.mu_dtype, cfg.nu_dtype) else 0.0
+    for (name, a), b in zip(states[0].student.named_parameters(), states[1].student.parameters()):
+        pa = a.detach()
+        assert (b.detach().cpu() - pa).abs().max() <= 1e-6 * pa.abs().max() + low, name
+        sa, sb = states[0].optimizer.state[a], states[1].optimizer.state[b]
+        assert sa.keys() == sb.keys()
+        for k in sa:
+            x, y = sa[k], sb[k].cpu()
+            assert x.dtype == y.dtype, (name, k)
+            if k != "step":
+                assert (x.float() - y.float()).abs().max() <= 2 ** -7 * x.float().abs().max() + 1e-30, (name, k)
+
+
+def test_moe_mlp_bf16_on_the_card_matches_the_cpu(card):
+    """MoeMlp at ViT-S width (E 4, cf 1.25, N 261) in bf16: the same expert
+    for every token, the output within 0.05 and the aux within 1e-5."""
+    from dinox_torch.models.moe import MoeMlp
+
+    m = MoeMlp(384, 4)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(1))
+    x = (torch.randn((4, 261, 384), generator=torch.Generator().manual_seed(2))).to(torch.bfloat16)
+    y_cpu, aux_cpu = m(x)
+    _, e_cpu, _, _ = m.route(x)
+    m.cuda()
+    y, aux = m(x.cuda())
+    _, e, _, _ = m.route(x.cuda())
+    assert torch.equal(e.cpu(), e_cpu)
+    assert (y.float().cpu() - y_cpu.float()).abs().max() <= 0.05
+    assert abs(aux.item() - aux_cpu.item()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(192, 65, 3 * 384, 6), (192, 257, 3 * 512, 16)])
+def test_packed_pair_at_the_mae_shapes(card, shape):
+    """Kernel 1 and the dq/dkv pair at the MAE encoder's visible tokens (N 65
+    = CLS + 64 kept patches, hd 64) and the decoder's (N 257, hd 32, 16
+    heads): within the JAX check's tolerances, twice with equal bits."""
+    b, n, three_dim, heads = shape
+    qkv = torch.randn((b, n, three_dim), generator=card, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, n, three_dim // 3), generator=card, device="cuda").to(torch.bfloat16)
+    out = [flash_attention_packed(qkv, heads) for _ in range(2)]
+    grads = [packed_attention_backward(qkv, do, heads) for _ in range(2)]
+    assert torch.equal(*out) and torch.equal(*grads)
+    torch.testing.assert_close(out[0].float(), packed_attention_reference(qkv, heads).float(),
+                               atol=TOL, rtol=0)
+    want = packed_attention_backward_reference(qkv, do, heads).float()
+    assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()

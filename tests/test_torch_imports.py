@@ -4,8 +4,12 @@ augmentation, the bench and the FLOP counts included), and not
 chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
 the serving, training, evaluation or fine-tuning path imports PIL,
 safetensors, huggingface_hub, scikit-learn, peft, pydicom, nibabel or
-pylidc (the GPU machine has none of them): the CIFAR control and the
-DICOM/NIfTI readers and preprocessing CLIs included. Checked on the source with an AST scan."""
+pylidc (the GPU machine has none of them): the CIFAR control, the
+DICOM/NIfTI readers and preprocessing CLIs, the MoE and MAE models, the
+optimizer-memory options, the monitor and the scale and MoE benches
+included. TensorBoard (``torch.utils.tensorboard``, absent on some GPU
+machines) is imported only inside functions. Checked on the source with an
+AST scan."""
 
 import ast
 from pathlib import Path
@@ -62,4 +66,16 @@ def test_scan_sees_the_package():
             *(f"dinox_torch/preprocessing/{m}.py" for m in (
                 "make_synthetic_data", "preprocess_dicom", "preprocess_nifti",
                 "extract_dicom_spacing", "combine_indices", "make_split_manifest",
-                "build_slice_cache", "validate_samples", "extract_lidc_malignancy"))} <= names
+                "build_slice_cache", "validate_samples", "extract_lidc_malignancy")),
+            "dinox_torch/models/moe.py", "dinox_torch/models/mae.py", "dinox_torch/train/optim.py",
+            "dinox_torch/train/monitor_hook.py", "dinox_torch/data/png8.py",
+            "dinox_torch/monitor.py", "dinox_torch/bench_scale.py",
+            "dinox_torch/bench_moe_sweep.py"} <= names
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_tensorboard_only_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [n.lineno for n in tree.body
+           if isinstance(n, (ast.Import, ast.ImportFrom)) and "tensorboard" in ast.unparse(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports torch.utils.tensorboard at import time"

@@ -87,9 +87,11 @@ def test_embed_keeps_compute_dtype_and_token_order():
 
 
 def test_unported_options_raise():
-    # LoRA is ported (test_torch_lora_peft.py); MoE is not yet.
-    with pytest.raises(NotImplementedError):
-        PatchViT(torch_config.ModelConfig(**dict(BASE, moe_experts=2)))
+    # LoRA (test_torch_lora_peft.py) and MoE (test_torch_moe.py) are ported:
+    # an MoE config builds, with the MoE MLP in every moe_every'th block.
+    moe = PatchViT(torch_config.ModelConfig(**dict(BASE, moe_experts=2, moe_every=2)))
+    assert [hasattr(b, "moe") for b in moe.blocks] == [i % 2 == 1 for i in range(len(moe.blocks))]
+    assert not any(hasattr(b, "mlp") for b in moe.blocks if hasattr(b, "moe"))
     with pytest.raises(ValueError):
         PatchViT(torch_config.ModelConfig(**dict(BASE, lora_rank=4, lora_targets=("qkv", "norm1"))))
 
