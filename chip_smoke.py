@@ -2,9 +2,10 @@
 """On-card smoke test of dinox_torch's serving and training paths, its
 head-major attention path, its pretraining CLI, its evaluation,
 inference-bench and LoRA fine-tuning CLIs, the CIFAR control, the
-DICOM/NIfTI preprocessing CLIs, and module 11: the optimizer-memory
-options at ViT-L/G, the Switch-MoE family, the MAE objective and in-loop
-monitoring (one CUDA card).
+DICOM/NIfTI preprocessing CLIs, module 11 (the optimizer-memory options at
+ViT-L/G, the Switch-MoE family, the MAE objective and in-loop monitoring)
+and module 12 (release staging served back, data preparation into
+training, the integration canary), on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -193,6 +194,32 @@ Run from the repository root:  python3 chip_smoke.py
    dq entry their mae_decoder and vit_g timings; a module11 line before it
    holds the moe4 arm, the MAE step and every bench_scale result.
 
+25. Release staging (module 12; run after 18, on the straight run of 15):
+   python -m dinox_torch.publish_release with 16's evaluate_panorgan and
+   view_retrieval_eval JSONs and 18's adapter (the staged files,
+   WEIGHTS.sha256 against every weight file, the card's parameter count
+   equal to the backbone's and its Hardware row; no launch); the staged dir
+   and its backbone.pth (with the staged config.json) loaded back on the
+   card (load times) and 64 slices of 15's PNG tree encoded through kernel
+   1 by zoo.encode_batch: CLS bit-equal to load_backbone_from_run's; the
+   staged dir served by EmbedService(fused_attn=True) through kernel 6 (CLS
+   cosine >= 0.999 against the unfused backbone). Exact launches.
+26. Data preparation into training (module 12; run after 20): python -m
+   dinox_torch.preprocessing.prepare_data --dry-run (every Parquet manifest
+   read back through the port's reader and held to its index CSV),
+   temperature_resample at T 2.0 (the composition against
+   temperature_weights), then 5 steps of python -m dinox_torch.pretrain at
+   ViT-S bs 32 on the resampled index through kernels 1 and 2/3 (exact
+   launches); the Parquet writer's and reader's host rate on a 100000-row
+   manifest.
+27. The integration canary (module 12): python -m
+   dinox_torch.integration_canary at its defaults (8 steps, tol 1e-5) with
+   --device cuda and --report in the temp dir: all three gates pass, each
+   gate's wall time, the repository's canary_report.json untouched. Its
+   trainer runs --attn-impl xla, as the JAX canary's does: no kernel. The
+   kernels line gives kernels 1, 2 (dq, dkv) and 6 release_launches and
+   prepare_launches.
+
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
 """
@@ -203,6 +230,7 @@ import contextlib
 import csv
 import functools
 import gc
+import hashlib
 import io
 import json
 import re
@@ -234,6 +262,7 @@ from dinox_torch import (
     finetune_lora,
     monitor,
     pretrain,
+    publish_release,
     serve,
     validate_attention,
     view_retrieval_eval,
@@ -271,8 +300,10 @@ from dinox_torch.preprocessing import (
     combine_indices,
     extract_dicom_spacing,
     make_split_manifest,
+    prepare_data,
     preprocess_dicom,
     preprocess_nifti,
+    temperature_resample,
     validate_samples,
 )
 from dinox_torch.train.run_export import load_backbone_from_run
@@ -290,8 +321,14 @@ from dinox_torch.utils.roofline import (
     fused_mlp_fwd_parts_work,
     fused_mlp_fwd_work,
 )
+from dinox_torch.utils.trace_analysis import device_ops
+from dinox_torch.zoo import encode_batch, load_model
+from dinox_torch.zoo.card import DEFAULT_HARDWARE
 from dinox_torch.zoo.encode import _preprocess
 from dinox_torch.zoo.hub import LoadedModel, export_hub_checkpoint
+from dinox_torch.zoo.manifest import DataManifest
+from dinox_torch.zoo.merge import temperature_weights
+from dinox_torch.zoo.schemas import SliceMetadata
 from dinox_torch.zoo.peft import apply_lora, load_adapter, merge_adapter
 
 SEED = 0
@@ -308,6 +345,12 @@ CIFAR_ARGS = ["--attn-impl", "pallas", "--max-steps", str(CIFAR_STEPS), "--batch
 # 5 pretraining steps of ViT-S bs32 over their PNGs.
 DICOM_SERIES, NIFTI_VOLUMES, SERIES_SLICES, PRE_STEPS, PRE_BATCH = 4, 2, 32, 5, 32
 BUCKETS = [1, 8, 32]
+# Module 12 (phases 25-27): the staged release encodes RELEASE_SLICES slices
+# of the PNG tree in forwards of RELEASE_BATCH; prepare_data's resampled
+# index trains PREP_STEPS steps of ViT-S bs PREP_BATCH (the resample's total
+# is one pass); the Parquet codec is timed on PARQUET_ROWS rows.
+RELEASE_SLICES, RELEASE_BATCH = 64, 32
+PREP_STEPS, PREP_BATCH, PARQUET_ROWS = 5, 32, 100_000
 TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py --check)
 # (b, n, 3*dim, heads): the kernel-check shapes (ViT-S, ViT-G hd 88), the
 # serving bucket-32 shape, the MAE decoder's hd 32, the ViT-S training
@@ -1617,13 +1660,12 @@ def print_device_profile(fn, wall_ms: float, label: str, what: str) -> None:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                      if e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(t for t, _, _ in by_name) / 1e3
+    by_name = device_ops(prof)
+    busy_ms = sum(t for t, _, _ in by_name)
     print(f"{label} device time (torch.profiler, {what}): {busy_ms:.3f} ms of {wall_ms:.3f} ms "
           f"wall = {100 * busy_ms / wall_ms:.1f}% busy; top items:", flush=True)
     for t, count, key in by_name[:8]:
-        print(f"  {t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+        print(f"  {t:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
 
 
 def first_batch(rows: list[IndexRow], n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -2136,6 +2178,239 @@ def preprocess_path(tmp: Path) -> dict[str, int]:
 
 
 
+def release_path(tmp: Path) -> dict[str, int]:
+    """Release staging (module 12) of the pretraining phase's straight run:
+    python -m dinox_torch.publish_release with the evaluation phase's JSONs
+    and the fine-tuning phase's adapter (the staged files, WEIGHTS.sha256
+    against each weight file, the card's parameter count and Hardware row,
+    no launch); the staged dir and its backbone.pth loaded back on the card
+    (load times) and RELEASE_SLICES slices of the PNG tree encoded through
+    kernel 1 by zoo.encode_batch, CLS bit-equal to load_backbone_from_run's;
+    the staged dir served by EmbedService(fused_attn=True) through kernel 6
+    (CLS cosine >= 0.999). Exact launches: depth x forwards on each kernel.
+    Returns the phase's launches."""
+    depth = MODEL_CONFIGS["vit-small"].depth
+    run, staging, snap = tmp / "straight", tmp / "release", tmp / "release_snapshot"
+    reset_launch_counts()
+    wall, _ = run_cli(["--backbone", str(run), "--model-name", "dinox-ct-vits-smoke", "--eval-json",
+                       str(tmp / "eval.json"), "--retrieval-json", str(tmp / "vr.json"), "--adapter",
+                       str(tmp / "adapter0"), "--staging-dir", str(staging), "--snapshot-dir", str(snap)],
+                      "on the straight run", publish_release.main)
+    staged = {p.relative_to(staging).as_posix(): p for p in staging.rglob("*") if p.is_file()}
+    want_files = {"README.md", "backbone.pth", "backbone.safetensors", "config.json", "eval_results.json",
+                  "training_config.json", *(f"adapter/{p.name}" for p in (tmp / "adapter0").iterdir())}
+    listed = {}
+    for line in (snap / "WEIGHTS.sha256").read_text().splitlines()[1:]:
+        digest, size, rel = line.split()
+        listed[rel] = (digest, int(size))
+    weights = {rel for rel, p in staged.items() if p.suffix in publish_release.WEIGHT_SUFFIXES}
+    hashed = {}
+    for rel in weights:
+        with staged[rel].open("rb") as fh:
+            hashed[rel] = (hashlib.file_digest(fh, "sha256").hexdigest(), staged[rel].stat().st_size)
+    copied = sorted(p.relative_to(snap).as_posix() for p in snap.rglob("*") if p.is_file())
+    print(f"publish_release on the straight run: {wall:.1f} s (the backbone read from the run on the "
+          f"card, staged as safetensors and .pth with the card, configs, evaluations and the adapter, "
+          f"and a weightless snapshot); staged {sorted(staged)}, {sum(p.stat().st_size for p in staged.values())} "
+          f"bytes; WEIGHTS.sha256 lists {sorted(listed)}; snapshot {copied}", flush=True)
+    if set(staged) != want_files or listed != hashed or set(copied) != (want_files - weights) | {"WEIGHTS.sha256"}:
+        fail("publish_release did not stage the release and its weightless snapshot as expected")
+    if launch_counts() != want_counts():
+        fail("staging a release launched a kernel")
+
+    loads = {}
+    t0 = time.perf_counter()
+    ref = load_backbone_from_run(run, device="cuda")
+    loads["run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hub = load_model(staging, device="cuda")
+    loads["hub dir"] = time.perf_counter() - t0
+    override = json.loads((staging / "config.json").read_text())
+    t0 = time.perf_counter()
+    pth = load_model(staging / "backbone.pth", config_override=override, device="cuda")
+    loads["backbone.pth"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ref.parameters())
+    card = (staging / "README.md").read_text()
+    print(f"staged card: {n_params} backbone parameters; Parameters row "
+          f"{re.search(r'[|] Parameters [|] (.*) [|]', card).group(1)}; Hardware row "
+          f"{re.search(r'[|] Hardware [|] (.*) [|]', card).group(1)}", flush=True)
+    if (f"| Parameters | {round(n_params / 1e6, 1)}M |" not in card or "TPU" in card
+            or f"| Hardware | {DEFAULT_HARDWARE} |" not in card):
+        fail("the staged card's parameter count or hardware row is wrong")
+
+    rows = load_index_rows(tmp / "tree" / "index.csv")[:RELEASE_SLICES]
+    imgs = [read_png16(r.png_path).astype(np.float32) - HU_SHIFT for r in rows]
+    sps = [(r.spacing_x, r.spacing_y, r.spacing_z) for r in rows]
+    forwards = -(-len(rows) // RELEASE_BATCH)
+    cls, encode_ms = {}, {}
+    reset_launch_counts()
+    for name, model in (("run", ref), ("hub dir", hub), ("backbone.pth", pth)):
+        t0 = time.perf_counter()
+        cls[name] = encode_batch(model, imgs, sps, batch_size=RELEASE_BATCH)
+        torch.cuda.synchronize()
+        encode_ms[name] = (time.perf_counter() - t0) * 1e3
+    counts = expect_counts("encode_batch of the run, the staged dir and backbone.pth",
+                           want_counts(packed_attention=3 * forwards * depth),
+                           f"kernel 1 depth x {forwards} forwards for each of the three")
+    equal = {name: bool(torch.equal(cls[name], cls["run"])) for name in ("hub dir", "backbone.pth")}
+    print(f"release loaded back on the card: load s {', '.join(f'{k} {v:.3f}' for k, v in loads.items())}; "
+          f"encode_batch of {len(rows)} 512^2 slices (host preprocessing + {forwards} forwards of "
+          f"{RELEASE_BATCH}, host clock) ms {', '.join(f'{k} {v:.1f}' for k, v in encode_ms.items())}; "
+          f"CLS bit-equal to the run's backbone: {equal}", flush=True)
+    if not all(equal.values()):
+        fail("the staged release does not give the run's backbone's CLS bits")
+
+    service = serve.EmbedService(str(staging), BUCKETS, device="cuda", fused_attn=True)
+    try:
+        reset_launch_counts()
+        f0 = service.stats["forwards"]
+        t0 = time.perf_counter()
+        got = service.embed(imgs, sps)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        served = service.stats["forwards"] - f0
+    finally:
+        service.close()
+    fused = expect_counts("the staged dir served with fused_attn=True",
+                          want_counts(fused_attn_block=served * depth),
+                          f"kernel 6 depth x {served} forwards, kernel 1 none")
+    want = cls["run"].float()
+    want = (want / want.norm(dim=-1, keepdim=True)).cpu().numpy()
+    cos = np.sum(got * want, axis=1)
+    print(f"EmbedService(staged dir, fused_attn=True): {len(rows)} slices in {served} forwards, "
+          f"{served_ms:.1f} ms (host clock); CLS cosine against the unfused run's backbone min "
+          f"{cos.min():.6f}", flush=True)
+    if cos.min() < 0.999:
+        fail("the staged release served through kernel 6 disagrees with the unfused backbone")
+    return add_counts(counts, fused)
+
+
+def prepare_path(tmp: Path) -> dict[str, int]:
+    """Data preparation into training (module 12): python -m
+    dinox_torch.preprocessing.prepare_data --dry-run (every Parquet manifest
+    it wrote read back through the port's reader and held to its index
+    CSV), temperature_resample at T 2.0 on the combined index (the
+    composition against temperature_weights), then python -m
+    dinox_torch.pretrain on the resampled index at ViT-S bs PREP_BATCH for
+    PREP_STEPS steps through kernels 1 and 2/3 (exact launches); the
+    Parquet writer's and reader's host rate on a PARQUET_ROWS-row manifest.
+    Returns the pretraining run's launches."""
+    out = tmp / "prepared"
+    wall, _ = run_cli(["--out", str(out), "--dry-run"], "--dry-run", prepare_data.main)
+    manifests = sorted((out / "manifests").glob("*.parquet"))
+    checked = {}
+    for path in manifests:
+        got = [r.model_dump() for r in DataManifest.load(path).records]
+        want = [SliceMetadata(dataset=path.stem, series_id=r.series_dir, slice_idx=r.slice_index,
+                              pixel_spacing_x=r.spacing_x, pixel_spacing_y=r.spacing_y,
+                              slice_thickness=r.spacing_z, image_path=r.png_path).model_dump()
+                for r in load_index_rows(out / path.stem / "_index" / "index.csv")]
+        checked[path.stem] = (len(got), got == want)
+    print(f"prepare_data --dry-run: {wall:.2f} s; manifests read back through the port's Parquet "
+          f"reader against their index CSVs (rows, equal): {checked}", flush=True)
+    if not manifests or not all(ok for _, ok in checked.values()):
+        fail("prepare_data's manifests do not hold their index CSVs")
+
+    combined, resampled = out / "_index" / "index.csv", out / "_index" / "resampled_t2.csv"
+    total = PREP_STEPS * PREP_BATCH
+    run_cli(["--index", str(combined), "--out", str(resampled), "--temperature", "2.0", "--total",
+             str(total)], "T=2.0", temperature_resample.main)
+    raw, rows = load_index_rows(combined), load_index_rows(resampled)
+    names = sorted({r.dataset for r in raw})
+    target = temperature_weights([sum(r.dataset == n for r in raw) for n in names], 2.0)
+    got = [sum(r.dataset == n for r in rows) / len(rows) for n in names]
+    err = max(abs(a - b) for a, b in zip(target, got))
+    print(f"temperature_resample T=2.0: {len(raw)} slices -> {len(rows)}; composition "
+          f"{dict(zip(names, got))} against temperature_weights {dict(zip(names, target))} "
+          f"(max abs err {err:.4f})", flush=True)
+    if len(rows) != total or err > 1 / total:
+        fail("temperature_resample's composition does not follow the temperature weights")
+
+    depth = MODEL_CONFIGS["vit-small"].depth
+    reset_launch_counts()
+    wall, _ = run_cli(["--config", "vit-small", "--scale-aware", "--index-csv", str(resampled),
+                       "--batch-size", str(PREP_BATCH), "--canvas", "64", "--max-steps", str(PREP_STEPS),
+                       "--warmup-steps", "1", "--run-dir", str(tmp / "prep_run"), "--log-json",
+                       "--no-tensorboard"], "on the resampled index")
+    metrics = read_metrics(tmp / "prep_run")
+    losses = [metrics[k]["loss"] for k in sorted(metrics)]
+    counts = expect_counts(f"pretrain over the resampled index ({PREP_STEPS} steps of ViT-S bs{PREP_BATCH}, "
+                           f"{wall:.1f} s, losses {losses})",
+                           want_counts(packed_attention=PREP_STEPS * 2 * depth,
+                                       packed_attention_bwd_dq=PREP_STEPS * depth,
+                                       packed_attention_bwd_dkv=PREP_STEPS * depth),
+                           "kernel 1 2 x depth, dq and dkv depth a step")
+    if sorted(metrics) != list(range(1, PREP_STEPS + 1)) or not np.isfinite(losses).all():
+        fail("pretraining on the resampled index did not run as expected")
+
+    rng = np.random.default_rng(SEED)
+    organs = [["lung"], [], ["liver", "hepatic_vessels"], ["brain"]]
+    records = [SliceMetadata(dataset=f"ds{i % 7}", series_id=f"1.3.6.1.4.{i // 160}", slice_idx=i % 160,
+                             pixel_spacing_x=float(sx), pixel_spacing_y=float(sx), slice_thickness=float(st),
+                             image_path=f"/data/processed/ds{i % 7}/series_{i // 160:05d}/{i % 160:04d}.png",
+                             organs_present=organs[i % 4], patient_id=None if i % 3 else f"P{i // 480:05d}")
+               for i, (sx, st) in enumerate(zip(rng.uniform(0.3, 1.0, PARQUET_ROWS),
+                                                rng.choice([0.625, 1.0, 2.5, 5.0], PARQUET_ROWS)))]
+    path = tmp / "manifest_100k.parquet"
+    t0 = time.perf_counter()
+    DataManifest(records).save(path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = DataManifest.load(path)
+    read_s = time.perf_counter() - t0
+    mb = path.stat().st_size / 1e6
+    print(f"Parquet codec on a {PARQUET_ROWS}-row manifest ({mb:.2f} MB, PLAIN, uncompressed; host "
+          f"clock): save {write_s:.3f} s = {PARQUET_ROWS / write_s:.0f} rows/s ({mb / write_s:.1f} MB/s), "
+          f"load {read_s:.3f} s = {PARQUET_ROWS / read_s:.0f} rows/s ({mb / read_s:.1f} MB/s), records "
+          f"validated; round trip equal: {back.records == records}", flush=True)
+    if back.records != records:
+        fail("the Parquet codec did not read back what it wrote")
+    return counts
+
+
+def canary_path(tmp: Path) -> None:
+    """python -m dinox_torch.integration_canary at its defaults (8 steps, tol
+    1e-5) on the card, with --report inside tmp: all three gates pass, each
+    gate's wall time (from its line's arrival), and the repository's own
+    canary_report.json is left as it was. The canary's trainer runs
+    --attn-impl xla, as the JAX canary's does: no kernel."""
+    root = Path(__file__).resolve().parent
+    repo_report = root / "canary_report.json"
+    before = repo_report.read_bytes() if repo_report.exists() else None
+    report = tmp / "canary_report.json"
+    cmd = [sys.executable, "-m", "dinox_torch.integration_canary", "--device", "cuda", "--report",
+           str(report), "--workdir", str(tmp / "canary")]
+    marks: dict[int, float] = {}
+    t0 = time.perf_counter()
+    with subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) as proc:
+        tail = []
+        for line in proc.stdout:
+            tail = (tail + [line])[-40:]
+            m = re.match(r"\[(\d)\]", line)
+            if m:
+                marks[int(m.group(1))] = time.perf_counter() - t0
+                print(f"  canary {line.rstrip()}", flush=True)
+        rc = proc.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    if rc != 0 or not report.exists():
+        fail(f"the integration canary exited {rc}:\n{''.join(tail)}")
+    res = json.loads(report.read_text())
+    det, res_f, samp = res["determinism"], res["resume_fidelity"], res["sampling_distribution"]
+    gates = {"determinism": marks.get(1), "resume": marks.get(2, 0) - marks.get(1, 0),
+             "sampling": marks.get(3, 0) - marks.get(2, 0)}
+    print(f"integration canary (8 steps, tol {det['tolerance']}, --device cuda): {wall:.1f} s in all; "
+          f"per gate s {', '.join(f'{k} {v:.1f}' for k, v in gates.items())} (determinism includes the "
+          f"synthetic tree); determinism max rel diff {det['max_rel_diff']:.3e} over {det['steps']} steps; "
+          f"resume max rel diff {res_f['max_rel_diff']:.3e} ({res_f['steps_resumed']} steps, NaN "
+          f"{res_f['any_nan']}); sampling max abs err {samp['max_abs_err']:.4f} "
+          f"({samp['observed_fractions']} against {samp['target_weights']}), smoke train "
+          f"{samp['smoke_train_ok']}; all passed {res['all_passed']}", flush=True)
+    after = repo_report.read_bytes() if repo_report.exists() else None
+    if not res["all_passed"] or len(marks) != 3:
+        fail("the integration canary failed a gate")
+    if after != before:
+        fail("the integration canary wrote the repository's canary_report.json")
+
+
 def add_counts(total: dict[str, int], counts: dict[str, int]) -> dict[str, int]:
     return {k: total.get(k, 0) + v for k, v in counts.items()}
 
@@ -2530,6 +2805,7 @@ def main() -> int:
         eval_counts = eval_path(tmp)
         infer_counts, infer_fwd = inference_path(peaks)
         finetune_counts = finetune_path(tmp, bench_rate)
+        release_counts = release_path(tmp)
 
     # -- the CIFAR control (module 10's rest) and DICOM/NIfTI to training
     # (module 8b) --
@@ -2537,6 +2813,8 @@ def main() -> int:
         tmp = Path(tmp)
         cifar_counts, cifar_fwd, cifar_bwd = cifar_path(tmp, peaks)
         preprocess_counts = preprocess_path(tmp)
+        prepare_counts = prepare_path(tmp)
+        canary_path(tmp)
 
     # -- module 11: MoE, MAE, monitoring, then optimizer memory at ViT-L/G --
     with tempfile.TemporaryDirectory() as tmp:
@@ -2564,7 +2842,9 @@ def main() -> int:
                 "moe_launches": moe_counts[name],
                 "mae_launches": mae_counts[name],
                 "scale_launches": scale_counts[name],
-                "monitor_launches": monitor_counts[name]}
+                "monitor_launches": monitor_counts[name],
+                "release_launches": release_counts[name],
+                "prepare_launches": prepare_counts[name]}
 
     def fwd_timing(t: dict) -> dict:
         return {"shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -47,6 +47,7 @@ from dinox_torch.train.state import TrainConfig, create_train_state
 from dinox_torch.train.step import build_train_step
 from dinox_torch.utils.flops import card_peaks, mfu
 from dinox_torch.utils.platform import resolve_device
+from dinox_torch.utils.trace_analysis import device_ops
 
 # The reference's training rate on an RTX 3090 Ti, slices/s: the JAX bench's
 # vs_baseline divisor (bench.py:31, which cites the reference's
@@ -134,8 +135,7 @@ def _profile_step(step_fn, state, pixels, spacing, sync, losses, dev) -> dict[st
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     losses.append(metrics["loss"])
-    by_name = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                      if e.self_device_time_total > 0), reverse=True)
+    by_name = device_ops(prof)
     return {"wall_ms": wall_ms, "device_ms": sum(t for t, _, _ in by_name),
             "top": [{"name": k, "ms": t, "count": c} for t, c, k in by_name]}
 

@@ -17,7 +17,9 @@ pair at its (512, 69, 576, 6); LoRA dropout replayed under gradient
 checkpointing with a generator on the card; and module 11: the
 low-precision and factored Adam updates on the card against the CPU, the
 MoE MLP in bf16 on the card against the CPU, and kernel 1 and the pair at
-the MAE encoder's and decoder's shapes.
+the MAE encoder's and decoder's shapes; and module 12: a staged release
+loaded back (hub dir and backbone.pth) encoding through kernel 1 with the
+source model's bits, and detect_hardware on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -970,3 +972,39 @@ def test_packed_pair_at_the_mae_shapes(card, shape):
                                atol=TOL, rtol=0)
     want = packed_attention_backward_reference(qkv, do, heads).float()
     assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_staged_release_cls_through_kernel_1_is_bit_equal(card, tmp_path):
+    """A ViT-S backbone staged by zoo.publish.stage_release, loaded back as
+    the hub dir and as backbone.pth (with the staged config.json), encodes 40
+    slices through kernel 1 to CLS features with the source model's bits;
+    launches == depth x forwards."""
+    import json
+
+    from dinox_torch.zoo import encode_batch, load_model
+    from dinox_torch.zoo.publish import stage_release
+
+    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+    model = LoadedModel(cfg, "cuda", generator=torch.Generator().manual_seed(3))
+    staged = stage_release(model, tmp_path / "release", model_name="t")
+    rng = np.random.default_rng(0)
+    imgs = [rng.uniform(-1000, 1500, (512, 512)).astype(np.float32) for _ in range(40)]
+    sps = [tuple(rng.uniform(0.5, 3.0, 3)) for _ in imgs]
+    want = encode_batch(model, imgs, sps, batch_size=32)
+    override = json.loads((staged / "config.json").read_text())
+    for loaded in (load_model(staged, device="cuda"),
+                   load_model(staged / "backbone.pth", config_override=override, device="cuda")):
+        before = flash_attention_packed.launches
+        got = encode_batch(loaded, imgs, sps, batch_size=32)
+        assert flash_attention_packed.launches == before + cfg.depth * 2
+        assert torch.equal(got, want)
+    assert "TPU" not in (staged / "README.md").read_text()
+
+
+def test_detect_hardware_reports_the_card(card):
+    from dinox_torch.utils.hardware import detect_hardware
+
+    hw = detect_hardware()
+    assert hw.backend == "gpu" and hw.device_kind == torch.cuda.get_device_name(0)
+    assert hw.num_devices == torch.cuda.device_count() and hw.num_hosts == 1
+    assert hw.batch_size_recommendation == 64

@@ -4,9 +4,11 @@ augmentation, the bench and the FLOP counts included), and not
 chip_smoke.py, imports JAX, flax, optax or the JAX package, and nothing on
 the serving, training, evaluation or fine-tuning path imports PIL,
 safetensors, huggingface_hub, scikit-learn, peft, pydicom, nibabel or
-pylidc (the GPU machine has none of them): the CIFAR control, the
-DICOM/NIfTI readers and preprocessing CLIs, the MoE and MAE models, the
-optimizer-memory options, the monitor and the scale and MoE benches
+pylidc, nor (the catalog, the Parquet manifests and the release tooling)
+pydantic, PyYAML or pyarrow (the GPU machine has none of them): the CIFAR
+control, the DICOM/NIfTI readers and preprocessing CLIs, the MoE and MAE
+models, the optimizer-memory options, the monitor, the scale and MoE
+benches, and module 12's provenance layer, release staging and canary
 included. TensorBoard (``torch.utils.tensorboard``, absent on some GPU
 machines) is imported only inside functions. Checked on the source with an
 AST scan."""
@@ -19,7 +21,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "dinox_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dinox_tpu", "PIL", "safetensors",
-             "huggingface_hub", "sklearn", "peft", "pydicom", "nibabel", "pylidc"}
+             "huggingface_hub", "sklearn", "peft", "pydicom", "nibabel", "pylidc", "pydantic", "yaml",
+             "pyarrow"}
 
 
 def _imported_roots(tree):
@@ -70,7 +73,14 @@ def test_scan_sees_the_package():
             "dinox_torch/models/moe.py", "dinox_torch/models/mae.py", "dinox_torch/train/optim.py",
             "dinox_torch/train/monitor_hook.py", "dinox_torch/data/png8.py",
             "dinox_torch/monitor.py", "dinox_torch/bench_scale.py",
-            "dinox_torch/bench_moe_sweep.py"} <= names
+            "dinox_torch/bench_moe_sweep.py",
+            *(f"dinox_torch/zoo/{m}.py" for m in (
+                "schemas", "_yaml", "registry", "_parquet", "manifest", "merge", "card", "publish")),
+            *(f"dinox_torch/preprocessing/{m}.py" for m in (
+                "write_dataset_manifest", "temperature_resample", "prepare_data")),
+            "dinox_torch/data/manifest_dataset.py", "dinox_torch/publish_release.py",
+            "dinox_torch/integration_canary.py", "dinox_torch/utils/hardware.py",
+            "dinox_torch/utils/trace_analysis.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
