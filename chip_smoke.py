@@ -3,9 +3,10 @@
 head-major attention path, its pretraining CLI, its evaluation,
 inference-bench and LoRA fine-tuning CLIs, the CIFAR control, the
 DICOM/NIfTI preprocessing CLIs, module 11 (the optimizer-memory options at
-ViT-L/G, the Switch-MoE family, the MAE objective and in-loop monitoring)
-and module 12 (release staging served back, data preparation into
-training, the integration canary), on one CUDA card.
+ViT-L/G, the Switch-MoE family, the MAE objective and in-loop monitoring),
+module 12 (release staging served back, data preparation into training,
+the integration canary) and module 12b (the run and bench tooling), on one
+CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -35,9 +36,10 @@ Run from the repository root:  python3 chip_smoke.py
 7. Runs one training micro-step of full ViT-S (bs 8) through the kernels
    and once with plain attention, from one state and the same views: the
    losses within 1e-2 relative, every gradient at cosine >= 0.99.
-8. Trains: dinox_torch.bench.bench_train_step(96), 5 warm-up and 20 timed
+8. Trains: dinox_torch.bench.bench_train_step(96), 5 warm-up and 60 timed
    steps and one profiled step, every loss finite, and exact launch counts
-   per step (forward 2 x depth, each backward kernel depth).
+   per step (forward 2 x depth, each backward kernel depth). Its rate is
+   the reference of the later phases' comparisons.
 9. (Run right after 3.) Holds the fused attention half-block kernel (TPU
    kernel 6: LN + QKV and proj + residual on the GEMM core gemm_sm90.cuh
    around kernel 1's attention core) against its plain version at nine
@@ -219,6 +221,34 @@ Run from the repository root:  python3 chip_smoke.py
    trainer runs --attn-impl xla, as the JAX canary's does: no kernel. The
    kernels line gives kernels 1, 2 (dq, dkv) and 6 release_launches and
    prepare_launches.
+28. The run tools (module 12b; run after 25, on the runs of 15): python -m
+   dinox_torch.compare_runs of the straight run against the SIGINT-resumed
+   one (overlap_steps 40, max_rel_diff <= 1e-3), soak_seam_analysis at the
+   SIGINT seam (lr_ratio equal to the straight run's across that step to
+   1e-6; jump_ratio and n_duplicates_dropped printed) and on the run
+   resumed from step 20, log_runs over the six runs (a row each, steps_done
+   as run). Host work: no launch.
+29. The diagnostics: diagnose_scale_pathway on the straight run at --n 32
+   --canvas 512 (exactly 84 launches of kernel 1, 7 forwards x 12 blocks at
+   (32, 261, 1152, 6); the counterfactual curve within 1e-3 absolute of the
+   same weights through plain attention); round5_patch_probe over the val
+   series (half of 15's 48) of a split written by make_split_manifest
+   (kernel 1 12 x ceil(val rows / 64) launches; CLS cosine >= 0.999
+   against plain attention); round5_data_probe on the same tree.
+30. The sweeps: bench_batch_sweep at bs 64/96/128/192/256 with --profile
+   (exact launches of kernels 1, dq and dkv; every row ok; the per-slice
+   device µs by kind printed; bs 96 within 5% of step 8's rate);
+   tune_throughput --synthetic --batch-sizes 64 640 64 --steps 100 (the
+   middle cell "oom", the second bs-64 cell ok, within 10% of the first
+   and at its peak memory); its index-CSV grid over 15's PNG tree at bs
+   64, workers {4, 8} x prefetch {2, 4} (exact launches; each cell's bound
+   and data_wait_frac), then --loader-only over the same grid.
+31. The LoRA ablation: python -m dinox_torch.ablation_lora_lidc all on
+   18's labelled CSVs and the straight run (four adapter dirs, each arm's
+   best AUROC printed as the runbook prints it, exact launches). Each phase
+   prints its wall time. The kernels line gives kernels 1, 2 (dq, dkv) and
+   6 tools_launches (28-29), sweep_launches (30) and ablation_launches
+   (31).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -233,6 +263,7 @@ import gc
 import hashlib
 import io
 import json
+import os
 import re
 import shutil
 import signal
@@ -251,19 +282,28 @@ import torch
 import torch.nn.functional as F
 
 from dinox_torch import (
+    ablation_lora_lidc,
     baseline_cifar10_linear_probe,
     baseline_cifar10_pretrain,
     baseline_cifar10_view_retrieval_eval,
+    bench_batch_sweep,
     bench_inference,
     bench_moe_sweep,
     bench_scale,
     check_checkpoint,
+    compare_runs,
+    diagnose_scale_pathway,
     evaluate_panorgan,
     finetune_lora,
+    log_runs,
     monitor,
     pretrain,
     publish_release,
+    round5_data_probe,
+    round5_patch_probe,
     serve,
+    soak_seam_analysis,
+    tune_throughput,
     validate_attention,
     view_retrieval_eval,
 )
@@ -271,7 +311,13 @@ from dinox_torch.bench import bench_config, bench_train_step, fused_block_inputs
 from dinox_torch.data.cifar import synthetic_cifar
 from dinox_torch.data.dicom import write_dicom
 from dinox_torch.data.hu import HU_SHIFT, encode_hu16
-from dinox_torch.data.index import IndexRow, load_index_rows, write_index_rows
+from dinox_torch.data.index import (
+    IndexRow,
+    load_index_rows,
+    load_split_manifest,
+    val_series_set,
+    write_index_rows,
+)
 from dinox_torch.data.nifti import write_nifti
 from dinox_torch.data.png16 import decoder_in_use, read_png16, write_png16
 from dinox_torch.data.synthetic import PROFILES_V2, draw_spacing, synth_series_np
@@ -391,6 +437,11 @@ SWEEP_EXPERTS, SWEEP_FACTORS, SWEEP_WARMUP, SWEEP_STEPS = (4, 8), (1.0, 1.25), 2
 MAE_DECODER_DEPTH = 8
 TRAINING_SHAPE = CHECK_SHAPES[4]
 TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS = 96, 5, 20
+# Step 8's timed window, the reference rate the later phases compare with:
+# over 20 steps (~2.4 s) one run on an H100 80GB HBM3 read 742.84 slices/s
+# where others read 786-797, a stall of the card's shared host; 60 steps
+# (~7 s) dilute such a stall.
+BENCH_STEPS = 60
 # The pretraining CLI at full width and depth: ViT-S scale-aware bs96, tanh,
 # attn_impl "pallas", the bench's KoLeo weight, on the v2 synthetic profiles
 # staged on the card.
@@ -414,6 +465,21 @@ SLO_CONCURRENCY, SLO_SAMPLES = [1, 4, 16], 200
 INFER_SHAPE = CHECK_SHAPES[5]
 # LoRA fine-tuning: bs 32, 3 steps an epoch, 2 validation batches.
 FT_BATCH, FT_TRAIN, FT_VAL = 32, 96, 64
+# Module 12b (phases 28-31). diagnose_scale_pathway's batch (7 forwards at
+# (32, 261, 1152, 6)); the share of the tree's series round5_patch_probe
+# reads (24 of 48: 768 slices, both splits of its probe hold every
+# profile); tune_throughput's smallest ViT-S batch (a multiple of 64) that
+# does not fit the card, between two bs-64 cells (on an H100 80GB HBM3 the
+# step's peak grows by ~0.127 GiB a slice and bs 512 peaks at 65.4 GiB of
+# the card's 79.2, so bs 640 needs ~81.6 and runs out); its index-CSV grid.
+DIAG_N, PROBE_VAL_FRACTION = 32, 0.5
+TUNE_OOM_BATCH = 640
+# The synthetic cells' timed steps: over the tool's 12 (~1 s a bs-64 cell)
+# the rate moved by up to 17% from cell to cell on an H100 80GB HBM3's host,
+# with or without an OOM cell between, and by 8.6% over 50; 100 (~10 s)
+# average the host's slow spells over a longer window.
+TUNE_STEPS = 100
+TUNE_WORKERS, TUNE_PREFETCH = ["4", "8"], ["2", "4"]
 # The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
 # --check); (b, n, dim, heads): the check shape, the serving bucket 32, the
 # training shape, ViT-G (hd 88), hd 32 and the inference bench's batch sizes
@@ -992,9 +1058,9 @@ def train(card: str) -> tuple[dict[str, int], float]:
     exact launch counts. Returns the counts of this run and its slices/s."""
     cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     reset_launch_counts()
-    res = bench_train_step(TRAIN_BATCH, steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, profile=True)
+    res = bench_train_step(TRAIN_BATCH, steps=BENCH_STEPS, warmup=TRAIN_WARMUP, profile=True)
     counts = launch_counts()
-    steps = TRAIN_WARMUP + TRAIN_STEPS + 1
+    steps = TRAIN_WARMUP + BENCH_STEPS + 1
     want = dict.fromkeys(COUNTERS, 0)
     want.update(packed_attention=steps * 2 * cfg.depth, packed_attention_bwd_dq=steps * cfg.depth,
                 packed_attention_bwd_dkv=steps * cfg.depth)
@@ -1003,7 +1069,7 @@ def train(card: str) -> tuple[dict[str, int], float]:
           f"(want {want}: forward 2 x depth, each backward kernel depth, per step)", flush=True)
     if counts != want:
         fail("the training step did not run every attention through the kernels exactly once")
-    report_training(res, cfg, card, TRAIN_STEPS)
+    report_training(res, cfg, card, BENCH_STEPS)
     return counts, res["slices_per_s"]
 
 
@@ -1459,14 +1525,15 @@ def write_tree(root: Path) -> Path:
     return root / "index.csv"
 
 
-def pretrain_path(card: str, bench_rate: float, tmp: Path) -> dict[str, int]:
+def pretrain_path(card: str, bench_rate: float, tmp: Path) -> tuple[dict[str, int], int]:
     """The pretraining path through python -m dinox_torch.pretrain at full
     width and depth: a straight run with exact launch counts, the same run
     interrupted by SIGINT and resumed (lr bit-equal, losses after the seam
     within RESUME_TOL), the --fused-attn path, and the host loader over a
     PNG tree. Leaves the straight run in tmp/straight and the tree in
     tmp/tree for the phases after it. Returns the launch counts of the
-    straight run and, under "fused_attn_block", of the fused run."""
+    straight run and, under "fused_attn_block", of the fused run, and the
+    step the SIGINT leg stopped at."""
     depth = MODEL_CONFIGS["vit-small"].depth
     root = Path(__file__).resolve().parent
     # 1. Straight, in process.
@@ -1634,7 +1701,7 @@ def pretrain_path(card: str, bench_rate: float, tmp: Path) -> dict[str, int]:
             fail(f"the loader-fed pretraining run (--decoded-cache {cache}) failed")
         if cache == "off" and decodes <= n_slices:
             fail("the loader decoded no slice twice: the timed window read from its memory cache")
-    return counts
+    return counts, seam
 
 
 def eval_forwards(rows: list[IndexRow], batch: int, n_retrieval: int, max_slices: int,
@@ -2656,6 +2723,280 @@ def monitor_path(tmp: Path) -> dict[str, int]:
     return total
 
 
+def tools_path(tmp: Path, seam: int) -> dict[str, int]:
+    """Phase 28, the run-dir readers on the pretraining phase's runs:
+    compare_runs of the straight run against the SIGINT-resumed one (every
+    step, within RESUME_TOL), soak_seam_analysis at the SIGINT seam (the lr
+    ratio that of the straight run across the same step) and on the run
+    resumed from step 20, log_runs over those runs (a row each, the steps
+    done). Host work: no launch. Returns the phase's launches."""
+    t0 = time.perf_counter()
+    straight, killed, mid = tmp / "straight", tmp / "killed", tmp / "from20"
+    reset_launch_counts()
+    _, out = run_cli([str(straight / "metrics.jsonl"), str(killed / "metrics.jsonl")],
+                     "straight vs SIGINT-resumed", compare_runs.main)
+    cmp = json.loads(out)
+    print(f"compare_runs straight vs the SIGINT-resumed run: overlap_steps {cmp['overlap_steps']}, "
+          f"max_rel_diff {cmp['max_rel_diff']:.3e} (tol {RESUME_TOL}), max_abs_diff "
+          f"{cmp['max_abs_diff']:.3e}, tail_rel_gap {cmp['tail_rel_gap']:.3e}", flush=True)
+    if cmp["overlap_steps"] != PRETRAIN_STEPS or not cmp["max_rel_diff"] <= RESUME_TOL:
+        fail("compare_runs does not see the resumed run continue the straight one")
+    ref = read_metrics(straight)
+    want_ratio = round(ref[seam + 1]["lr"] / max(ref[seam]["lr"], 1e-12), 4)
+    _, out = run_cli(["--run", str(killed), "--seams", str(seam)], f"at step {seam}",
+                     soak_seam_analysis.main)
+    soak = json.loads(out)
+    row = soak["seams"][0]
+    print(f"soak_seam_analysis at the SIGINT seam (step {seam}): jump_ratio {row.get('jump_ratio')}, "
+          f"{row.get('jump_in_noise_units')} noise units, lr_ratio {row.get('lr_ratio')} (the straight "
+          f"run's across step {seam}: {want_ratio}), n_logged {soak['n_logged']}, "
+          f"n_duplicates_dropped {soak['n_duplicates_dropped']}", flush=True)
+    if "lr_ratio" not in row or abs(row["lr_ratio"] - want_ratio) > 1e-6 or soak["n_logged"] != PRETRAIN_STEPS:
+        fail("soak_seam_analysis does not see the schedule continue across the SIGINT seam")
+    _, out = run_cli(["--run", str(mid), "--seams", "20"], "on the run resumed from step 20",
+                     soak_seam_analysis.main)
+    soak20 = json.loads(out)
+    print(f"soak_seam_analysis on the run resumed from step 20: n_logged {soak20['n_logged']}, "
+          f"n_duplicates_dropped {soak20['n_duplicates_dropped']}, seam 20 "
+          f"{soak20['seams'][0].get('status', 'analysed')} (its log starts at step 21)", flush=True)
+    runs = tmp / "ledger_runs"
+    runs.mkdir()
+    done = {"straight": PRETRAIN_STEPS, "from20": PRETRAIN_STEPS, "killed": PRETRAIN_STEPS,
+            "fused": PRETRAIN_FUSED_STEPS, "loader_off": LOADER_STEPS, "loader_build": LOADER_STEPS}
+    for name in done:
+        (runs / name).symlink_to(tmp / name, target_is_directory=True)
+    run_cli(["--runs-dir", str(runs), "--out-dir", str(tmp / "ledger")], "over the runs", log_runs.main)
+    with open(tmp / "ledger" / "experiments.csv", newline="") as f:
+        ledger = {r["run"]: r for r in csv.DictReader(f)}
+    print(f"log_runs: {len(ledger)} rows; steps_done "
+          f"{ {k: r['steps_done'] for k, r in ledger.items()} }; samples_per_s "
+          f"{ {k: r['samples_per_s'] for k, r in ledger.items()} }", flush=True)
+    if {k: r["steps_done"] for k, r in ledger.items()} != {k: str(v) for k, v in done.items()}:
+        fail("log_runs did not give each run its row and steps")
+    counts = expect_counts("run tools", want_counts(), "none: host work")
+    print(f"phase 28 (run tools): {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def diagnostics_path(tmp: Path) -> dict[str, int]:
+    """Phase 29, the diagnostics on the straight run and the PNG tree:
+    diagnose_scale_pathway at --n DIAG_N (exact launches: 7 forwards x
+    depth; the counterfactual curve against the same weights with plain
+    attention, within 1e-3), round5_patch_probe over the val series of a
+    split written by make_split_manifest (exact launches: depth per batch of
+    64; CLS against plain attention), round5_data_probe (host work).
+    Returns the launches of the two CLIs that run the model."""
+    t0 = time.perf_counter()
+    depth = MODEL_CONFIGS["vit-small"].depth
+    run = tmp / "straight"
+    reset_launch_counts()
+    wall, _ = run_cli(["--checkpoint", str(run), "--n", str(DIAG_N), "--canvas", "512", "--out",
+                       str(tmp / "diag.json")], "on the straight run", diagnose_scale_pathway.main)
+    counts = expect_counts("diagnose_scale_pathway", want_counts(packed_attention=7 * depth),
+                           f"7 forwards x depth at ({DIAG_N}, 261, 1152, 6)")
+    rep = json.loads((tmp / "diag.json").read_text())
+    base = load_any_model(run, "cuda")
+    plain = LoadedModel(base.cfg.replace(attn_impl="xla"), "cuda")
+    plain.load_state_dict(base.state_dict())
+    x, sp = diagnose_scale_pathway.make_batch(DIAG_N, 512, plain.img_size, 42, "cuda")
+    want = diagnose_scale_pathway.counterfactual_curve(plain, x, sp)
+    got = rep["counterfactual"]
+    diff = {k: abs(v - want["cosdist_vs_multiplier"][k]) for k, v in got["cosdist_vs_multiplier"].items()}
+    st = rep["scale_token"]
+    print(f"diagnose_scale_pathway ({wall:.1f} s): |post_ln| {st['post_ln_norm_mean']:.4f} (LN pin "
+          f"{st['ln_pin_norm']:.4f}), pre-LN {st['pre_ln_norm_mean']:.4f}, rotation x2 "
+          f"{st['scale_vec_cosdist_2x']}, scale/token ratio {rep['input_mix']['scale_to_token_ratio']:.4f}; "
+          f"counterfactual {got['cosdist_vs_multiplier']}, slope {got['local_slope_per_log_spacing']:.6f}; "
+          f"against plain attention: largest difference {max(diff.values()):.3e} (tol 1e-3), slope "
+          f"{want['local_slope_per_log_spacing']:.6f}", flush=True)
+    if max(diff.values()) > 1e-3 or not np.isfinite(list(got["cosdist_vs_multiplier"].values())).all():
+        fail("the scale-pathway counterfactual through kernel 1 disagrees with plain attention")
+
+    index_csv, manifest = tmp / "tree" / "index.csv", tmp / "tree" / "split_manifest.json"
+    run_cli(["--index", str(index_csv), "--out", str(manifest), "--val-fraction",
+             str(PROBE_VAL_FRACTION)], "of the tree", make_split_manifest.main)
+    val = val_series_set(load_split_manifest(manifest))
+    rows = [r for r in load_index_rows(index_csv) if r.series_dir in val][:1200]
+    reset_launch_counts()
+    wall, _ = run_cli(["--checkpoint", str(run), "--index-csv", str(index_csv), "--split-manifest",
+                       str(manifest), "--out", str(tmp / "patch_probe.json")], "on the tree",
+                      round5_patch_probe.main)
+    counts = add_counts(counts, expect_counts(
+        "round5_patch_probe", want_counts(packed_attention=depth * -(-len(rows) // 64)),
+        f"depth x {-(-len(rows) // 64)} batches of 64 over {len(rows)} val slices"))
+    probe = json.loads((tmp / "patch_probe.json").read_text())
+    sub = rows[:128]
+    cls_k, patch_k = round5_patch_probe.cls_and_mean_patch(base, sub)
+    cls_p, patch_p = round5_patch_probe.cls_and_mean_patch(plain, sub)
+    cos, pcos = cls_cosine(cls_k, cls_p), cls_cosine(patch_k, patch_p)
+    print(f"round5_patch_probe ({wall:.1f} s, {probe['n_slices']} slices): cls {probe['cls']}, "
+          f"mean_patch {probe['mean_patch']}; against plain attention on {len(sub)} slices: CLS cosine "
+          f"min {cos.min():.6f}, mean patch cosine min {pcos.min():.6f}", flush=True)
+    if probe["n_slices"] != len(rows) or cos.min() < 0.999 or not {"accuracy", "auc"} <= set(probe["cls"]):
+        fail("round5_patch_probe through kernel 1 disagrees with plain attention or gave no probe")
+
+    reset_launch_counts()
+    wall, _ = run_cli(["--trees", str(tmp / "tree"), "--out", str(tmp / "data_probe.json")], "on the tree",
+                      round5_data_probe.main)
+    (res,) = json.loads((tmp / "data_probe.json").read_text())["results"]
+    print(f"round5_data_probe ({wall:.1f} s): {res}", flush=True)
+    expect_counts("round5_data_probe", want_counts(), "none: host work")
+    if not 0.0 <= res["data_probe_accuracy"] <= 1.0:
+        fail("round5_data_probe gave no accuracy")
+    print(f"phase 29 (diagnostics): {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def sweeps_path(tmp: Path, bench_rate: float) -> dict[str, int]:
+    """Phase 30, the sweeps: bench_batch_sweep at its defaults with
+    --profile (exact launches; every row ok; the per-slice device µs by
+    kind; bs 96 within 5% of phase 8's bench_train_step), tune_throughput
+    --synthetic at bs 64, TUNE_OOM_BATCH, 64 (the middle cell "oom", the
+    second bs-64 cell within 10% of the first and at its peak memory), its
+    index-CSV grid over the PNG tree at bs 64 (exact launches) and
+    --loader-only over the same grid.
+    Returns the phase's launches."""
+    t0 = time.perf_counter()
+    depth = MODEL_CONFIGS["vit-small"].depth
+    d = bench_batch_sweep.parse_args([])
+    steps = (d.warmup + d.steps + d.profile_steps) * len(d.batch_sizes)
+    reset_launch_counts()
+    wall, _ = run_cli(["--profile", "--trace-root", str(tmp / "sweep_traces"), "--out",
+                       str(tmp / "sweep.json")], "at its defaults", bench_batch_sweep.main)
+    counts = expect_counts("bench_batch_sweep", want_counts(
+        packed_attention=steps * 2 * depth, packed_attention_bwd_dq=steps * depth,
+        packed_attention_bwd_dkv=steps * depth),
+        f"{steps} steps: forward 2 x depth, each backward kernel depth, per step")
+    rows = json.loads((tmp / "sweep.json").read_text())["results"]
+    print(f"bench_batch_sweep ({wall:.1f} s): " + "; ".join(
+        f"bs{r['batch_size']} {r.get('slices_per_s')} slices/s, {r.get('ms_per_step')} ms, mfu "
+        f"{r.get('mfu')}" if "slices_per_s" in r else f"bs{r['batch_size']} {r.get('status')}"
+        for r in rows), flush=True)
+    if [r["batch_size"] for r in rows] != d.batch_sizes or any("slices_per_s" not in r for r in rows):
+        fail("a batch size of bench_batch_sweep failed")
+    kinds = sorted({k for r in rows for k in r["categories_ms_per_step"]},
+                   key=lambda k: -rows[-1]["categories_ms_per_step"].get(k, 0.0))
+    print(f"bench_batch_sweep per-slice device µs by kind (bs {d.batch_sizes}; torch.profiler over "
+          f"{d.profile_steps} steps):", flush=True)
+    for k in kinds + ["all"]:
+        vals = [(sum(r["categories_ms_per_step"].values()) if k == "all"
+                 else r["categories_ms_per_step"].get(k, 0.0)) * 1e3 / r["batch_size"] for r in rows]
+        print(f"  {k:<44} " + " ".join(f"{v:>8.2f}" for v in vals), flush=True)
+    r96 = next(r for r in rows if r["batch_size"] == TRAIN_BATCH)
+    print(f"bench_batch_sweep bs{TRAIN_BATCH}: {r96['slices_per_s']} slices/s against phase 8's "
+          f"bench_train_step({TRAIN_BATCH}) {bench_rate:.2f}: {100 * (r96['slices_per_s'] / bench_rate - 1):+.1f}% "
+          f"(tol 5%); best {max(rows, key=lambda r: r['slices_per_s'])['batch_size']}", flush=True)
+    if abs(r96["slices_per_s"] / bench_rate - 1) > 0.05:
+        fail("bench_batch_sweep's bs96 row is not the bench's step")
+
+    tune = tune_throughput.parse_args([])
+    cell = tune.warmup + TUNE_STEPS
+    reset_launch_counts()
+    wall, _ = run_cli(["--synthetic", "--batch-sizes", "64", str(TUNE_OOM_BATCH), "64", "--steps",
+                       str(TUNE_STEPS), "--out-dir", str(tmp / "tune_synthetic")],
+                      f"--synthetic 64 {TUNE_OOM_BATCH} 64", tune_throughput.main)
+    got = launch_counts()
+    res = json.loads((tmp / "tune_synthetic" / "results.json").read_text())
+    summary = json.loads((tmp / "tune_synthetic" / "summary.json").read_text())
+    for r in res:
+        print(f"tune_throughput --synthetic bs{r['batch_size']}: {r['status']}, img_per_s "
+              f"{r.get('img_per_s')}, bound {r.get('bound')}, device_step_s {r.get('device_step_s')}, "
+              f"h2d_s {r.get('h2d_s')}, peak_bytes_in_use {r.get('peak_bytes_in_use')}, error "
+              f"{r.get('error')}", flush=True)
+    ok_fwd, ok_bwd = 2 * cell * 2 * depth, 2 * cell * depth  # the two bs-64 cells
+    extra = {k: got[k] - w for k, w in (("packed_attention", ok_fwd), ("packed_attention_bwd_dq", ok_bwd),
+                                        ("packed_attention_bwd_dkv", ok_bwd))}
+    print(f"tune_throughput --synthetic ({wall:.1f} s): summary {summary}; launches {got}: the bs-64 "
+          f"cells {ok_fwd} / {ok_bwd} / {ok_bwd}, the out-of-memory cell {extra} before it ran out",
+          flush=True)
+    if ([r["status"] for r in res] != ["ok", "oom", "ok"] or summary["oom_batches"] != [TUNE_OOM_BATCH]
+            or abs(res[2]["img_per_s"] / res[0]["img_per_s"] - 1) > 0.10
+            or res[2]["peak_bytes_in_use"] > 1.01 * res[0]["peak_bytes_in_use"]):
+        fail(f"tune_throughput did not come back from the out-of-memory cell at bs {TUNE_OOM_BATCH}")
+    if (not 0 <= extra["packed_attention"] <= 2 * depth or not 0 <= extra["packed_attention_bwd_dq"] <= depth
+            or not 0 <= extra["packed_attention_bwd_dkv"] <= depth
+            or any(v for k, v in got.items() if not k.startswith("packed_attention"))):
+        fail("tune_throughput --synthetic launched other than its steps")
+    counts = add_counts(counts, got)
+
+    index_csv = tmp / "tree" / "index.csv"
+    grid = ["--index-csv", str(index_csv), "--batch-sizes", "64", "--num-workers", *TUNE_WORKERS,
+            "--prefetch", *TUNE_PREFETCH]
+    n_cells, cell = len(TUNE_WORKERS) * len(TUNE_PREFETCH), tune.warmup + tune.steps
+    reset_launch_counts()
+    wall, _ = run_cli(grid + ["--out-dir", str(tmp / "tune_grid")], "over the tree", tune_throughput.main)
+    counts = add_counts(counts, expect_counts("tune_throughput --index-csv", want_counts(
+        packed_attention=n_cells * cell * 2 * depth, packed_attention_bwd_dq=n_cells * cell * depth,
+        packed_attention_bwd_dkv=n_cells * cell * depth), f"{n_cells} cells of {cell} steps"))
+    res = json.loads((tmp / "tune_grid" / "results.json").read_text())
+    for r in res:
+        print(f"tune_throughput --index-csv bs64 workers {r['num_workers']} prefetch {r['prefetch']}: "
+              f"{r['status']}, bound {r.get('bound')}, data_wait_frac {r.get('data_wait_frac')}, img_per_s "
+              f"{r.get('img_per_s')} ({r.get('img_per_s_overlapped')} overlapped), data {r.get('data_wait_s')} "
+              f"s, h2d {r.get('h2d_s')} s, step {r.get('device_step_s')} s, cpu {r.get('cpu_user_s')} + "
+              f"{r.get('cpu_sys_s')} s, loadavg {r.get('loadavg_1m')}", flush=True)
+    print(f"tune_throughput --index-csv grid: {wall:.1f} s", flush=True)
+    if len(res) != n_cells or any(r["status"] != "ok" for r in res):
+        fail("a cell of tune_throughput's index-CSV grid failed")
+    reset_launch_counts()
+    wall, _ = run_cli(grid + ["--loader-only", "--out-dir", str(tmp / "tune_loader")], "--loader-only",
+                      tune_throughput.main)
+    expect_counts("tune_throughput --loader-only", want_counts(), "none: host work")
+    res = json.loads((tmp / "tune_loader" / "results.json").read_text())
+    for r in res:
+        print(f"tune_throughput --loader-only bs64 workers {r['num_workers']} prefetch {r['prefetch']}: "
+              f"{r['status']}, img_per_s {r.get('img_per_s')}, batch_ms {r.get('batch_ms')}, cpu_frac "
+              f"{r.get('cpu_frac')}", flush=True)
+    print(f"tune_throughput --loader-only grid: {wall:.1f} s", flush=True)
+    if len(res) != n_cells or any(r["status"] != "ok" for r in res):
+        fail("a cell of tune_throughput --loader-only failed")
+    print(f"phase 30 (sweeps): {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def ablation_path(tmp: Path) -> dict[str, int]:
+    """Phase 31, the LoRA ablation runbook: python -m
+    dinox_torch.ablation_lora_lidc all on the fine-tuning phase's labelled
+    CSVs and the straight run, ADAPTER_BASE in the temp dir: four adapter
+    dirs, each arm's best AUROC as printed and in its history.json, exact
+    launches (per epoch, kernel 1 depth x (3 steps + 2 validation
+    batches), dq and dkv depth x 3). Returns the phase's launches."""
+    t0 = time.perf_counter()
+    depth = MODEL_CONFIGS["vit-small"].depth
+    base = tmp / "ablation"
+    steps, val_batches = FT_TRAIN // FT_BATCH, -(-FT_VAL // FT_BATCH)
+    reset_launch_counts()
+    old = os.environ.get("ADAPTER_BASE")
+    os.environ["ADAPTER_BASE"] = str(base)
+    try:
+        wall, out = run_cli([str(tmp / "straight"), str(tmp / "train.csv"), str(tmp / "val.csv")], "all",
+                            ablation_lora_lidc.main)
+    finally:
+        if old is None:
+            os.environ.pop("ADAPTER_BASE")
+        else:
+            os.environ["ADAPTER_BASE"] = old
+    printed = dict(re.findall(r"^(.*): best val AUROC = ([0-9.]+)$", out, re.M))
+    epochs = {}
+    for name in ("baseline", "rank16", "unfreeze2", "crop128"):
+        hist = json.loads((base / name / "history.json").read_text())
+        epochs[name] = len(hist)
+        best = ablation_lora_lidc.best_auroc(base / name)
+        print(f"ablation arm {name}: {len(hist)} epochs, best val AUROC {best:.4f} (printed "
+              f"{printed.get(str(base / name))}), val losses {[round(h['loss'], 4) for h in hist]}",
+              flush=True)
+        if printed.get(str(base / name)) != f"{best:.4f}" or not np.isfinite([h["train_loss"] for h in hist]).all():
+            fail(f"the ablation arm {name} did not run or report as the runbook does")
+    e = sum(epochs.values())
+    counts = expect_counts("ablation_lora_lidc all", want_counts(
+        packed_attention=depth * (steps + val_batches) * e, packed_attention_bwd_dq=depth * steps * e,
+        packed_attention_bwd_dkv=depth * steps * e),
+        f"{e} epochs in all: depth x ({steps} steps + {val_batches} validation batches) forward, "
+        f"depth x {steps} each backward kernel, an epoch")
+    print(f"phase 31 (the LoRA ablation, {wall:.1f} s in the CLI): {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2801,11 +3142,17 @@ def main() -> int:
     # inference bench and LoRA fine-tuning (module 10) on its run and tree --
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        pretrain_counts = pretrain_path(card, bench_rate, tmp)
+        pretrain_counts, seam = pretrain_path(card, bench_rate, tmp)
         eval_counts = eval_path(tmp)
         infer_counts, infer_fwd = inference_path(peaks)
         finetune_counts = finetune_path(tmp, bench_rate)
         release_counts = release_path(tmp)
+        # Module 12b on the same runs and tree, before they go.
+        t12b = time.perf_counter()
+        tools_counts = add_counts(tools_path(tmp, seam), diagnostics_path(tmp))
+        sweep_counts = sweeps_path(tmp, bench_rate)
+        ablation_counts = ablation_path(tmp)
+        print(f"phases 28-31 (module 12b): {time.perf_counter() - t12b:.1f} s in all", flush=True)
 
     # -- the CIFAR control (module 10's rest) and DICOM/NIfTI to training
     # (module 8b) --
@@ -2844,7 +3191,10 @@ def main() -> int:
                 "scale_launches": scale_counts[name],
                 "monitor_launches": monitor_counts[name],
                 "release_launches": release_counts[name],
-                "prepare_launches": prepare_counts[name]}
+                "prepare_launches": prepare_counts[name],
+                "tools_launches": tools_counts[name],
+                "sweep_launches": sweep_counts[name],
+                "ablation_launches": ablation_counts[name]}
 
     def fwd_timing(t: dict) -> dict:
         return {"shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

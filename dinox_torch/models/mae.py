@@ -146,7 +146,7 @@ class MaeModel(nn.Module):
         dt = enc.compute_dtype
         b = imgs.shape[0]
         pos = enc.pos_embed.to(dt)
-        x = enc.patch_embed(imgs.to(dt)) + pos[:, 1:]
+        x = enc.patch_tokens(imgs) + pos[:, 1:]
         x_vis, mask, ids_restore = random_masking(x, self.mask_ratio, noise)
         cls = (enc.cls_token.to(dt) + pos[:, :1]).expand(b, -1, -1)
         latent = enc.run_final_norm(enc.run_blocks(torch.cat([cls, x_vis], dim=1)))

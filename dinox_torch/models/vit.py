@@ -374,11 +374,16 @@ class PatchViT(nn.Module):
         for m in self.lora_layers():
             m.generator = generator
 
+    def patch_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) -> (B, n_patches, dim) in the compute dtype, row-major
+        patch order."""
+        return self.patch_embed(x.to(self.compute_dtype))
+
     def embed(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Patch embed + CLS + positional + scale token + registers -> (B, N, dim)."""
         dt = self.compute_dtype
         b = x.shape[0]
-        x = self.patch_embed(x.to(dt))
+        x = self.patch_tokens(x)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
         x = x + self.pos_embed.to(dt)
         if self.cfg.scale_aware and spacing is not None:

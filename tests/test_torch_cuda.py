@@ -19,7 +19,9 @@ low-precision and factored Adam updates on the card against the CPU, the
 MoE MLP in bf16 on the card against the CPU, and kernel 1 and the pair at
 the MAE encoder's and decoder's shapes; and module 12: a staged release
 loaded back (hub dir and backbone.pth) encoding through kernel 1 with the
-source model's bits, and detect_hardware on the card.
+source model's bits, and detect_hardware on the card; and module 12b: one
+row of bench_batch_sweep and one tune_throughput cell at ViT-S on the card,
+each with exact launches of kernels 1, dq and dkv.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -1008,3 +1010,30 @@ def test_detect_hardware_reports_the_card(card):
     assert hw.backend == "gpu" and hw.device_kind == torch.cuda.get_device_name(0)
     assert hw.num_devices == torch.cuda.device_count() and hw.num_hosts == 1
     assert hw.batch_size_recommendation == 64
+
+
+def test_bench_batch_sweep_row_on_the_card(card):
+    from dinox_torch.bench_batch_sweep import bench_one
+    from dinox_torch.utils.flops import card_peaks
+
+    depth = MODEL_CONFIGS["vit-small"].depth
+    counters = (flash_attention_packed, packed_attention_bwd_dq, packed_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    row = bench_one("vit-small", 16, 2, 1, None, 1, device="cuda",
+                    peak_flops=card_peaks(torch.cuda.get_device_name(0))[0])
+    assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2 * depth, 3 * depth, 3 * depth]
+    assert row["slices_per_s"] > 0 and 0 < row["mfu"] < 1
+
+
+def test_tune_throughput_cell_on_the_card(card, tmp_path):
+    from dinox_torch import tune_throughput
+
+    depth = MODEL_CONFIGS["vit-small"].depth
+    args = tune_throughput.parse_args(["--synthetic", "--steps", "2", "--warmup", "1",
+                                       "--out-dir", str(tmp_path)])
+    counters = (flash_attention_packed, packed_attention_bwd_dq, packed_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    rec = tune_throughput.measure(args, 16, 8, 4)
+    assert rec["status"] == "ok" and rec["bound"] == "compute_bound"
+    assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2 * depth, 3 * depth, 3 * depth]
+    assert 0 < rec["peak_bytes_in_use"] <= torch.cuda.get_device_properties(0).total_memory

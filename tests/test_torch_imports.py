@@ -8,10 +8,10 @@ pylidc, nor (the catalog, the Parquet manifests and the release tooling)
 pydantic, PyYAML or pyarrow (the GPU machine has none of them): the CIFAR
 control, the DICOM/NIfTI readers and preprocessing CLIs, the MoE and MAE
 models, the optimizer-memory options, the monitor, the scale and MoE
-benches, and module 12's provenance layer, release staging and canary
-included. TensorBoard (``torch.utils.tensorboard``, absent on some GPU
-machines) is imported only inside functions. Checked on the source with an
-AST scan."""
+benches, module 12's provenance layer, release staging and canary, and
+module 12b's run and bench tooling included. TensorBoard
+(``torch.utils.tensorboard``, absent on some GPU machines) is imported only
+inside functions. Checked on the source with an AST scan."""
 
 import ast
 from pathlib import Path
@@ -80,7 +80,11 @@ def test_scan_sees_the_package():
                 "write_dataset_manifest", "temperature_resample", "prepare_data")),
             "dinox_torch/data/manifest_dataset.py", "dinox_torch/publish_release.py",
             "dinox_torch/integration_canary.py", "dinox_torch/utils/hardware.py",
-            "dinox_torch/utils/trace_analysis.py"} <= names
+            "dinox_torch/utils/trace_analysis.py",
+            *(f"dinox_torch/{m}.py" for m in (
+                "compare_runs", "log_runs", "soak_seam_analysis", "diagnose_scale_pathway",
+                "round5_data_probe", "round5_patch_probe", "bench_batch_sweep", "tune_throughput",
+                "ablation_lora_lidc"))} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
