@@ -5,7 +5,9 @@ inference-bench and LoRA fine-tuning CLIs, the CIFAR control, the
 DICOM/NIfTI preprocessing CLIs, module 11 (the optimizer-memory options at
 ViT-L/G, the Switch-MoE family, the MAE objective and in-loop monitoring),
 module 12 (release staging served back, data preparation into training,
-the integration canary) and module 12b (the run and bench tooling), on one
+the integration canary), module 12b (the run and bench tooling) and module
+13a (the data-, tensor- and sequence-parallel mesh: a world-1 NCCL group,
+then two gloo ranks sharing the card through the pretraining CLI), on one
 CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -249,6 +251,27 @@ Run from the repository root:  python3 chip_smoke.py
    prints its wall time. The kernels line gives kernels 1, 2 (dq, dkv) and
    6 tools_launches (28-29), sweep_launches (30) and ablation_launches
    (31).
+32. Data parallelism (module 13a). (a) In a child process, a world-1 NCCL
+   group runs the mesh step at ViT-S scale-aware bs96 (tanh, "pallas",
+   KoLeo 0.1) for 3 steps beside the step without a mesh, from one seed on
+   the same staged batches: every metric and every state tensor bit-equal;
+   the NCCL all-reduce of the gradient bucket timed. (b) Two child
+   processes share gloo and the card as ranks 0 and 1 of the CLI
+   (--synthetic --batch-size 96, 48 rows a rank, 6 steps, --ckpt-every 3)
+   against the same argv in this process without the dist flags: per-step
+   losses within 1e-2 relative, the final checkpoint's student at cosine
+   >= 0.99 (all its tensors as one vector), exact launches per rank (kernel 1 24, dq and dkv 12 a step,
+   kernel 6 0). Gloo on CUDA tensors stages every collective on the host:
+   its step times are not NCCL's.
+33. Tensor and sequence parallelism: two gloo ranks with --model-parallel 2
+   --sequence-parallel --fused-attn (6 steps of an 8-step schedule) against
+   the one-process --fused-attn run of 8 steps (kernel 6 there, kernel 1
+   and the pair at (192, 261, 576, 3) on the ranks, kernel 6 0), with 32's
+   gates; then one process resumes the tp run's checkpoint for steps 7-8,
+   within 1e-2 of the straight run's. Kernel 1 and the pair are held
+   against their plain versions at both ranks' shapes, (96, 261, 1152, 6)
+   and (192, 261, 576, 3), and timed beside SDPA; the kernels line gives
+   kernels 1, 2 (dq, dkv) and 6 dp_launches and tp_launches (per rank).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -262,6 +285,7 @@ import functools
 import gc
 import hashlib
 import io
+import itertools
 import json
 import os
 import re
@@ -279,6 +303,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from dinox_torch import (
@@ -333,6 +358,8 @@ from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views, eval_transform
 from dinox_torch.ops.augment_rgb import RgbAugConfig, augment_rgb_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
+from dinox_torch.parallel import init_distributed, make_mesh
+from dinox_torch.parallel.collectives import all_reduce_bucket
 from dinox_torch.train.finetune import (
     FinetuneConfig,
     FinetuneState,
@@ -352,8 +379,11 @@ from dinox_torch.preprocessing import (
     temperature_resample,
     validate_samples,
 )
+from dinox_torch.pretrain import DeviceSyntheticBatches
+from dinox_torch.train.checkpoint import state_tensors
 from dinox_torch.train.run_export import load_backbone_from_run
 from dinox_torch.train.state import TrainConfig, create_train_state
+from dinox_torch.zoo.safetensors_io import load_file
 from dinox_torch.train.step import build_train_step, micro_loss_and_grads
 from dinox_torch.utils.flops import card_peaks, mfu
 from dinox_torch.utils.roofline import (
@@ -411,10 +441,14 @@ TOL = 0.02  # bf16 forward tolerance of the JAX package's kernel check (bench.py
 MAE_ENC_SHAPE, MAE_DEC_SHAPE = (192, 65, 3 * 384, 6), (192, 257, 3 * 512, 16)
 VIT_L_SHAPE, VIT_G_TRAIN_SHAPE = (64, 261, 3 * 1024, 16), (64, 261, 3 * 1408, 16)
 MODULE11_SHAPES = [MAE_ENC_SHAPE, MAE_DEC_SHAPE, VIT_L_SHAPE, VIT_G_TRAIN_SHAPE]
+# Module 13a (phases 32-33), (b, n, 3*dim, heads): the block a rank of the
+# ViT-S bs96 mesh step runs, its 2 x 48 view rows at dp 2 and all 2 x 96
+# rows at 3 of the 6 heads at tp 2.
+MESH_DP_SHAPE, MESH_TP_SHAPE = (96, 261, 3 * 384, 6), (192, 261, 3 * 192, 3)
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
                 (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6), (512, 261, 3 * 384, 6),
                 (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6),
-                *CIFAR_FWD_SHAPES, *MODULE11_SHAPES]
+                *CIFAR_FWD_SHAPES, *MODULE11_SHAPES, MESH_DP_SHAPE, MESH_TP_SHAPE]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
@@ -426,7 +460,8 @@ BWD_TOL, BWD_REL = 0.25, 2e-2
 # 512 views of 69 tokens at hd 32.
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6),
-              (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE, *MODULE11_SHAPES]
+              (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE, *MODULE11_SHAPES,
+              MESH_DP_SHAPE, MESH_TP_SHAPE]
 # Module 11 (phases 21-24): bench_scale at ViT-L and ViT-G bs 32 under each
 # optimizer kind (warm-up and timed steps per kind); the MoE, MAE and monitor
 # runs of the pretraining CLI; the MoE sweep's points; the MAE decoder's depth.
@@ -451,6 +486,14 @@ CLI_ARGS = ["--config", "vit-small", "--scale-aware", "--batch-size", str(TRAIN_
             "--no-tensorboard"]
 PRETRAIN_ARGS = CLI_ARGS + ["--synthetic-device-batches", "4", "--synthetic-datasets", "5"]
 RESUME_TOL = 1e-3  # relative, losses after the seam against the straight run
+# Module 13a (phases 32-33): the world-1 NCCL mesh step's steps beside the
+# step without a mesh; the two-rank CLI runs (--synthetic host batches, the
+# global bs96 of CLI_ARGS) and their gates (losses relative, as the
+# micro-steps', and the final student's cosine); the tp run stops at
+# MESH_CLI_STEPS of a schedule of MESH_CLI_STEPS + 2, which one process
+# finishes from its checkpoint.
+MESH_STEPS, MESH_CLI_STEPS, MESH_LOSS_TOL, MESH_COS = 3, 6, 1e-2, 0.99
+MESH_ARGS = CLI_ARGS + ["--synthetic", "--ckpt-every", "3"]
 # The host loader's tree: 48 series x 32 slices at 512^2 from the v2 profiles,
 # three times the 512 slices the loader keeps decoded in memory.
 TREE_SERIES, TREE_SLICES, TREE_SIZE = 48, 32, 512
@@ -2997,6 +3040,230 @@ def ablation_path(tmp: Path) -> dict[str, int]:
     return counts
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_step_worker(coord: str, out: Path) -> int:
+    """Phase 32a, in a child process: a world-1 NCCL group; MESH_STEPS steps
+    of the mesh step beside the step without a mesh from one seed on the
+    same staged batches; metrics and state compared bit for bit; the NCCL
+    all-reduce of the gradient bucket timed. Writes out/nccl.json."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://{coord}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        mcfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
+        cfg = TrainConfig(model=mcfg, batch_size=TRAIN_BATCH, warmup_steps=10, max_steps=50,
+                          koleo_weight=0.1)
+        batches = DeviceSyntheticBatches(MESH_STEPS, TRAIN_BATCH, 1, 512, SEED, n_datasets=5,
+                                         device="cuda")
+        plain, meshed = create_train_state(cfg, SEED, "cuda"), create_train_state(cfg, SEED, mesh=mesh)
+        fns = build_train_step(cfg, "cuda"), build_train_step(cfg, mesh=mesh)
+        same_metrics, times, counts = True, {"plain": [], "mesh": []}, []
+        for batch in itertools.islice(iter(batches), MESH_STEPS):
+            got = []
+            for name, state, fn in (("plain", plain, fns[0]), ("mesh", meshed, fns[1])):
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, m = fn(state, batch.pixels, batch.spacing)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+                got.append(m)
+            counts.append(launch_counts())
+            same_metrics &= sorted(got[0]) == sorted(got[1]) and all(
+                torch.equal(got[0][k], got[1][k]) for k in got[0])
+        a, b = state_tensors(plain), state_tensors(meshed)
+        same_state = a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+        grads = [torch.randn_like(p) for p in meshed.student.parameters()]
+        reduce_ms = median_ms(lambda: all_reduce_bucket(grads, mesh.data_group, "mean"), iters=20)
+        (out / "nccl.json").write_text(json.dumps({
+            "metrics_bit_equal": bool(same_metrics), "state_bit_equal": bool(same_state),
+            "mesh_counts": counts[-1],
+            "step_s": {k: v[1:] for k, v in times.items()},
+            "bucket_mb": sum(g.numel() for g in grads) * 4 / 1e6,
+            "allreduce_ms": reduce_ms, "tensors": len(grads)}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def rank_worker(coord: str, world: int, rank: int, out: Path, argv: list[str]) -> int:
+    """Phases 32b-33, in a child process: rank *rank* of a gloo group of
+    *world* on the card, running the pretraining CLI with *argv* and the
+    dist flags; writes its launch counts to out/launches_rank{rank}.json."""
+    init_distributed(coord, world, rank, backend="gloo")
+    try:
+        reset_launch_counts()
+        rc = pretrain.main(argv + ["--dist-coordinator", coord, "--dist-processes", str(world),
+                                   "--dist-process-id", str(rank)])
+        torch.cuda.synchronize()
+        (out / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
+    finally:
+        dist.destroy_process_group()
+    return rc
+
+
+def spawn_ranks(kind: str, world: int, out: Path, argv: list[str], timeout: float = 600) -> list[str]:
+    """Runs *world* children of this script (``--worker``) and waits for
+    them; fails unless each exits 0. Returns their outputs."""
+    coord = f"127.0.0.1:{free_port()}"
+    here = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker", kind, coord,
+                               str(world), str(r), str(out), *argv], cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+            fail(f"{kind} rank {r} of {world} exited {p.returncode}")
+    return logs
+
+
+def final_student(run_dir: Path) -> dict[str, np.ndarray]:
+    ckpt = max((d for d in (run_dir / "ckpt").iterdir() if d.name.isdigit()), key=lambda d: int(d.name))
+    return {k: v for k, v in load_file(ckpt / "state.safetensors").items() if k.startswith("student.")}
+
+
+def compare_mesh_run(label: str, ranks: Path, one: Path, steps: list[int], ranks_counts: list,
+                     want: dict[str, int]) -> dict:
+    """The gates of phases 32b-33: the mesh run's losses at *steps* within
+    MESH_LOSS_TOL of the one-process run's, its final student (every tensor,
+    as one vector) at cosine >= MESH_COS, and each rank's exact launches
+    *want*. The lowest cosine of a single tensor is printed beside it (a
+    tensor that starts at zero, such as the scale embedding's output layer,
+    holds only Adam's updates, whose signs follow rounding where a gradient
+    is near zero)."""
+    got, ref = read_metrics(ranks), read_metrics(one)
+    if sorted(got) != steps or not set(steps) <= set(ref):
+        fail(f"{label}: logged steps {sorted(got)} against {sorted(ref)}")
+    rel = {s: abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in steps}
+    a, b = final_student(ranks), final_student(one)
+    if {k: (v.shape, v.dtype) for k, v in a.items()} != {k: (v.shape, v.dtype) for k, v in b.items()}:
+        fail(f"{label}: the mesh run's checkpoint is not a one-process checkpoint")
+    def cosine(x: np.ndarray, y: np.ndarray) -> float:
+        return float(np.dot(x, y) / max(np.linalg.norm(x) * np.linalg.norm(y), 1e-30))
+
+    cos_all = cosine(*(np.concatenate([t[k].ravel() for k in sorted(a)]) for t in (a, b)))
+    cos = {k: cosine(a[k].ravel(), b[k].ravel()) for k in a if a[k].any() or b[k].any()}
+    worst = min(cos, key=cos.get)
+    print(f"{label}: losses {[round(got[s]['loss'], 6) for s in steps]} against "
+          f"{[round(ref[s]['loss'], 6) for s in steps]} (max rel {max(rel.values()):.3e}, tol "
+          f"{MESH_LOSS_TOL}); final student cosine {cos_all:.6f} as one vector (tol {MESH_COS}), "
+          f"lowest of one tensor {cos[worst]:.6f} ({worst}, of {len(cos)}); launches per rank "
+          f"{[{k: v for k, v in c.items() if v} for c in ranks_counts]} (want {want})", flush=True)
+    if not all(np.isfinite(got[s]["loss"]) for s in steps) or max(rel.values()) > MESH_LOSS_TOL:
+        fail(f"{label}: the losses disagree with the one-process run")
+    if cos_all < MESH_COS:
+        fail(f"{label}: the final student disagrees with the one-process run")
+    for r, c in enumerate(ranks_counts):
+        if c != want_counts(**want):
+            fail(f"{label}: rank {r} launched {c}, want {want}")
+    return {"max_rel_loss": max(rel.values()), "cosine": cos_all, "min_tensor_cosine": cos[worst]}
+
+
+def rank_step_s(log: str) -> float:
+    """Rank 0's seconds a step from the CLI's closing ``done`` line."""
+    m = re.search(r"done steps=(\d+) wall_s=([0-9.]+)", log)
+    if not m:
+        fail("the rank-0 log has no done line")
+    return float(m.group(2)) / int(m.group(1))
+
+
+def mesh_path(tmp: Path) -> dict:
+    """Phases 32-33 (module 13a): the world-1 NCCL step, then the two-rank
+    gloo runs of the CLI (data parallel; tensor + sequence parallel with
+    --fused-attn, resumed in one process). Returns the launches per rank and
+    the readings."""
+    t0 = time.perf_counter()
+    out = tmp / "nccl"
+    out.mkdir()
+    spawn_ranks("nccl-step", 1, out, [])
+    t32a = time.perf_counter() - t0
+    nccl = json.loads((out / "nccl.json").read_text())
+    step_ms = {k: 1e3 * float(np.median(v)) for k, v in nccl["step_s"].items()}
+    print(f"phase 32a, world-1 NCCL mesh step (ViT-S bs{TRAIN_BATCH}, {MESH_STEPS} steps): metrics "
+          f"bit-equal {nccl['metrics_bit_equal']}, state bit-equal {nccl['state_bit_equal']}; step "
+          f"{step_ms['mesh']:.2f} ms on the mesh, {step_ms['plain']:.2f} ms without (host clock, "
+          f"steps 2-{MESH_STEPS}); NCCL all-reduce of the {nccl['bucket_mb']:.1f} MB gradient bucket "
+          f"({nccl['tensors']} tensors, one flat f32 buffer, world 1): {nccl['allreduce_ms']:.4f} ms",
+          flush=True)
+    if not (nccl["metrics_bit_equal"] and nccl["state_bit_equal"]):
+        fail("the world-1 mesh step is not bit-equal to the step without a mesh")
+    if nccl["mesh_counts"] != want_counts(packed_attention=24, packed_attention_bwd_dq=12,
+                                          packed_attention_bwd_dkv=12):
+        fail(f"the world-1 mesh step launched {nccl['mesh_counts']}")
+
+    per_step = MESH_CLI_STEPS
+    dp_dir, one_dp = tmp / "dp", tmp / "one_dp"
+    dp_dir.mkdir()
+    logs = spawn_ranks("rank", 2, dp_dir,
+                       MESH_ARGS + ["--max-steps", str(per_step), "--run-dir", str(dp_dir)])
+    dp_counts = [json.loads((dp_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
+    reset_launch_counts()
+    wall, one_log = run_cli(MESH_ARGS + ["--max-steps", str(per_step), "--run-dir", str(one_dp)],
+                            "phase 32b one-process run")
+    one_counts = launch_counts()
+    if one_counts != want_counts(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
+                                 packed_attention_bwd_dkv=12 * per_step):
+        fail(f"the one-process run of phase 32b launched {one_counts}")
+    dp = compare_mesh_run("phase 32b, dp 2 (two gloo ranks on one card) vs one process", dp_dir, one_dp,
+                          list(range(1, per_step + 1)), dp_counts,
+                          dict(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
+                               packed_attention_bwd_dkv=12 * per_step))
+    dp["step_ms"], dp["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
+    t32b = time.perf_counter() - t0 - t32a
+    print(f"phase 32b step: {dp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors: every "
+          f"collective staged on the host, not NCCL's time), {dp['one_step_ms']:.1f} ms in one process "
+          f"(the CLI's done lines, host batches)", flush=True)
+
+    tp_dir, one_tp, resumed = tmp / "tp", tmp / "one_tp", tmp / "tp_resumed"
+    tp_dir.mkdir()
+    total = per_step + 2
+    tp_args = MESH_ARGS + ["--max-steps", str(total), "--fused-attn"]
+    logs = spawn_ranks("rank", 2, tp_dir, tp_args + ["--stop-after", str(per_step), "--model-parallel", "2",
+                                                     "--sequence-parallel", "--run-dir", str(tp_dir)])
+    tp_counts = [json.loads((tp_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
+    reset_launch_counts()
+    _, one_log = run_cli(tp_args + ["--run-dir", str(one_tp)], "phase 33 one-process --fused-attn run")
+    one_counts = launch_counts()
+    if one_counts != want_counts(fused_attn_block=24 * total, packed_attention_bwd_dq=12 * total,
+                                 packed_attention_bwd_dkv=12 * total):
+        fail(f"the one-process --fused-attn run of phase 33 launched {one_counts}")
+    tp = compare_mesh_run("phase 33, tp 2 + sequence parallel --fused-attn (two gloo ranks) vs one "
+                          "process --fused-attn", tp_dir, one_tp, list(range(1, per_step + 1)), tp_counts,
+                          dict(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
+                               packed_attention_bwd_dkv=12 * per_step))
+    tp["step_ms"], tp["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
+    run_cli(tp_args + ["--resume", str(tp_dir), "--run-dir", str(resumed)], "phase 33 resume")
+    got, ref = read_metrics(resumed), read_metrics(one_tp)
+    rel = {s: abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"])
+           for s in range(per_step + 1, total + 1)}
+    print(f"phase 33 step: {tp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors, not NCCL's "
+          f"time), {tp['one_step_ms']:.1f} ms in one process with kernel 6; one process resumed the tp "
+          f"run's step-{per_step} checkpoint: losses {[round(got[s]['loss'], 6) for s in rel]} against "
+          f"the straight run's {[round(ref[s]['loss'], 6) for s in rel]} (max rel {max(rel.values()):.3e}, "
+          f"tol {MESH_LOSS_TOL})", flush=True)
+    if sorted(got) != sorted(rel) or max(rel.values()) > MESH_LOSS_TOL:
+        fail("the one-process resume of the tp run's checkpoint disagrees with the straight run")
+    tp["resume_max_rel_loss"] = max(rel.values())
+    wall = time.perf_counter() - t0
+    print(f"phases 32-33 (module 13a): {wall:.1f} s (32a {t32a:.1f}, 32b {t32b:.1f}, 33 "
+          f"{wall - t32a - t32b:.1f})", flush=True)
+    return {"nccl": nccl, "dp": dp, "tp": tp, "dp_counts": dp_counts[0], "tp_counts": tp_counts[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -3180,6 +3447,21 @@ def main() -> int:
                                                              "max_memory_allocated", "optimizer_bytes")}
                         for (c, k), r in scale.items()}}}), flush=True)
 
+    # -- module 13a: the (data, model) mesh, then kernel 1 and the pair at
+    # the blocks its ranks run --
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_res = mesh_path(Path(tmp))
+    dp_fwd = time_forward(peaks, MESH_DP_SHAPE, "a dp-2 rank of the bs96 step", SEED + 15)
+    dp_bwd = time_backward(peaks, MESH_DP_SHAPE)
+    tp_fwd = time_forward(peaks, MESH_TP_SHAPE, "a tp-2 rank of the bs96 step", SEED + 16)
+    tp_bwd = time_backward(peaks, MESH_TP_SHAPE)
+    print(json.dumps({"module13a": {k: mesh_res[k] for k in ("dp", "tp")} | {
+        "nccl": {k: mesh_res["nccl"][k] for k in ("metrics_bit_equal", "state_bit_equal", "step_s",
+                                                    "bucket_mb", "allreduce_ms")}}}), flush=True)
+
+    def mesh_launches(name: str) -> dict[str, int]:
+        return {"dp_launches": mesh_res["dp_counts"][name], "tp_launches": mesh_res["tp_counts"][name]}
+
     def later_paths(name: str) -> dict[str, int]:
         return {"eval_launches": eval_counts[name],
                 "bench_inference_launches": infer_counts.get(name, 0),
@@ -3234,6 +3516,9 @@ def main() -> int:
                   "library_ms": cifar_fwd["library_ms"], "device_ms": cifar_fwd["device_ms"]},
         "mae_decoder": fwd_timing(mae_fwd),
         "vit_g": fwd_timing(g_fwd),
+        **mesh_launches("packed_attention"),
+        "mesh_dp": fwd_timing(dp_fwd),
+        "mesh_tp": fwd_timing(tp_fwd),
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -3256,6 +3541,7 @@ def main() -> int:
             "library_device_ms": bwd[part]["library_device_ms"],
             "pretrain_launches": pretrain_counts[name],
             **later_paths(name),
+            **mesh_launches(name),
         })
         if part == "dq":  # the pair at the CIFAR shape: time, bound and SDPA's backward
             c = cifar_bwd["dq"]
@@ -3265,6 +3551,8 @@ def main() -> int:
                                     "library_device_ms": c["library_device_ms"]}
             kernels[-1]["mae_decoder"] = pair_timing(mae_bwd, MAE_DEC_SHAPE)
             kernels[-1]["vit_g"] = pair_timing(g_bwd, VIT_G_TRAIN_SHAPE)
+            kernels[-1]["mesh_dp"] = pair_timing(dp_bwd, MESH_DP_SHAPE)
+            kernels[-1]["mesh_tp"] = pair_timing(tp_bwd, MESH_TP_SHAPE)
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
          fused["attn_training"], fused_counts["fused_attn_block"]),
@@ -3298,6 +3586,7 @@ def main() -> int:
             entry["backward_ms"] = t["backward_ms"]  # composed, not a kernel of this entry
             entry["pretrain_launches"] = pretrain_counts["fused_attn_block"]  # the --fused-attn run
             entry.update(later_paths("fused_attn_block"))
+            entry.update(mesh_launches("fused_attn_block"))
         if name.startswith("fused_mlp"):  # two or six launches: parts holds each one's device time
             entry["device_ms"] = t["device_ms"]
             entry["parts"] = {p: {"launches": fused_counts[f"{name}_{p}"], **v}
@@ -3351,5 +3640,15 @@ def main() -> int:
     return 0
 
 
+def worker(argv: list[str]) -> int:
+    """A child of phases 32-33: ``--worker KIND COORD WORLD RANK OUT [ARGV...]``."""
+    kind, coord, world, rank, out = argv[0], argv[1], int(argv[2]), int(argv[3]), Path(argv[4])
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    if kind == "nccl-step":
+        return nccl_step_worker(coord, out)
+    return rank_worker(coord, world, rank, out, argv[5:])
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker(sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())

@@ -10,6 +10,7 @@ hands the batch out, and marks each staged tensor as used on its stream
 later copy while the step still reads it. Without the wait the step could
 read pixels the copy has not written yet. An error in the producer is
 raised in the consumer. On the CPU the batch is only converted to tensors.
+A rank of a mesh passes its own card (``parallel.mesh.Mesh.device``).
 """
 
 from __future__ import annotations

@@ -28,6 +28,7 @@ from torch import nn
 
 from dinox_torch.models.config import ModelConfig
 from dinox_torch.models.vit import LayerNorm, Linear, PatchViT, TransformerBlock
+from dinox_torch.parallel.collectives import mean_over_group
 
 
 def sincos_2d(embed_dim: int, grid_size: int, cls_token: bool = True) -> np.ndarray:
@@ -153,11 +154,14 @@ class MaeModel(nn.Module):
         return self.decoder(latent.to(dt), ids_restore), mask
 
 
-def mae_loss(pred: torch.Tensor, imgs: torch.Tensor, mask: torch.Tensor, patch: int) -> torch.Tensor:
-    """Per-patch MSE averaged over the masked patches only."""
+def mae_loss(pred: torch.Tensor, imgs: torch.Tensor, mask: torch.Tensor, patch: int,
+             group=None) -> torch.Tensor:
+    """Per-patch MSE averaged over the masked patches only. Every image masks
+    the same number of patches, so with a data-parallel *group* the global
+    mean is the group mean of the ranks' (``mean_over_group``)."""
     target = patchify(imgs.float(), patch)
     per_patch = torch.mean((pred.float() - target) ** 2, dim=-1)
-    return torch.sum(per_patch * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return mean_over_group(torch.sum(per_patch * mask) / torch.clamp(torch.sum(mask), min=1.0), group)
 
 
 def init_mae(cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None,

@@ -1,6 +1,8 @@
 """Switch-style top-1 Mixture-of-Experts MLP: the counterpart of
-``dinox_tpu.models.moe.MoeMlp`` on one card (the JAX package's expert-axis
-sharding constraints belong to multi-GPU work).
+``dinox_tpu.models.moe.MoeMlp``. Under data parallelism the load-balance
+loss's two means are the global batch's (the token fractions all-reduced,
+the mean probabilities through ``parallel.collectives.mean_over_group``);
+routing is per image and needs nothing more. The expert axis is module 13b.
 
 Dense dispatch, as in the JAX package: routing is one-hot einsums onto a
 fixed-capacity (B, E, C, D) buffer, grouped per image. The router is a
@@ -22,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dinox_torch.parallel.collectives import all_reduce, mean_over_group
+
 
 class MoeMlp(nn.Module):
     """(B, N, D) -> ((B, N, D) in x's dtype, the float32 aux loss)."""
@@ -39,6 +43,7 @@ class MoeMlp(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(n_experts, 1, hidden))
         self.w2 = nn.Parameter(torch.empty(n_experts, hidden, dim))
         self.b2 = nn.Parameter(torch.zeros(n_experts, 1, dim))
+        self.data_group = None  # set by models.vit.set_mesh: the aux's batch means go global
 
     def capacity(self, n_tokens: int) -> int:
         return max(1, int(n_tokens / self.n_experts * self.capacity_factor))
@@ -54,7 +59,10 @@ class MoeMlp(nn.Module):
         if expert is None:
             expert = torch.argmax(probs, dim=-1)
         onehot = F.one_hot(expert, e).float()
-        aux = e * torch.sum(onehot.mean(dim=(0, 1)) * probs.mean(dim=(0, 1)))
+        frac, prob = onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+        if self.data_group is not None:  # the means over the global batch
+            frac, prob = all_reduce(frac, self.data_group, "mean"), mean_over_group(prob, self.data_group)
+        aux = e * torch.sum(frac * prob)
         pos = torch.einsum("bte,bte->bt", torch.cumsum(onehot, dim=1) - 1.0, onehot)
         pos_oh = (pos[..., None] == torch.arange(cap, device=x.device)).float()  # 0 past C
         dispatch = onehot[..., None] * pos_oh[:, :, None, :]

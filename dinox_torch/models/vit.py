@@ -53,6 +53,17 @@ rounding points:
   the LoRA dropout masks of the forward (the LoRA generators' states are
   noted per block and set back), as ``nn.remat`` replays its flax rng.
 
+* On a mesh (:func:`set_mesh`, ``parallel.mesh``), as the JAX package's
+  ``mesh``: more than one rank sends the fused attention half-block's
+  blocks through kernel 1 and the pair; with tp > 1 each block is
+  Megatron tensor-parallel (``qkv``/``fc1`` hold the rank's output columns,
+  ``qkv`` cut by heads so its output is the packed block kernel 1 reads,
+  ``proj``/``fc2`` the rank's input rows, their partial products summed in
+  float32 over the model group, rounded once, then the bias added once),
+  and ``sequence_parallel`` runs the norms and the residual stream on the
+  rank's token chunk (the reference's ``_sp``), the tokens padded to a
+  multiple of tp. The fused MLP, MoE and LoRA do not take tp > 1.
+
 :class:`DinoStudentTeacher` adds the DINO head on CLS; its ``state_dict()``
 keys are ``backbone.*``, ``head.0.*`` and ``head.2.*``, the keys of
 ``zoo.interop.jax_to_torch_student``.
@@ -70,7 +81,19 @@ from torch import nn
 
 from dinox_torch.models.config import ModelConfig
 from dinox_torch.models.moe import MoeMlp
-from dinox_torch.ops.flash_attention import flash_attention, flash_attention_packed
+from dinox_torch.parallel.collectives import (
+    copy_to_group,
+    gather_from_group,
+    gather_rows,
+    reduce_from_group,
+    scatter_rows,
+    split_to_group,
+)
+from dinox_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_packed,
+    flash_attention_packed_sharded,
+)
 from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
 from dinox_torch.ops.fused_mlp import fused_mlp_block
@@ -186,15 +209,16 @@ class Attention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, lora("qkv"))
         self.proj = Linear(dim, dim, lora("proj"))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qkv = self.qkv(x)
+    def attend(self, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        """Attention over packed ``(B, N, 3*heads*hd)`` -> ``(B, N, heads*hd)``."""
         if self.attn_impl == "pallas":
-            out = flash_attention_packed(qkv, self.heads)
-        else:
-            b, n, c = x.shape
-            q, k, v = qkv.view(b, n, 3, self.heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
-            out = sdpa(q, k, v, impl="xla").transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+            return flash_attention_packed(qkv, heads)
+        b, n, width = qkv.shape
+        q, k, v = qkv.view(b, n, 3, heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+        return sdpa(q, k, v, impl="xla").transpose(1, 2).reshape(b, n, width // 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.attend(self.qkv(x), self.heads))
 
 
 class Mlp(nn.Module):
@@ -208,10 +232,12 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
 
 
-def takes_fused_attn(cfg: ModelConfig) -> bool:
-    """The JAX package's condition for the fused attention half-block (the
-    mesh condition does not apply on one card)."""
-    return cfg.fused_attn and not cfg.lora_rank and cfg.attn_impl == "pallas"
+def takes_fused_attn(cfg: ModelConfig, mesh=None) -> bool:
+    """The JAX package's condition for the fused attention half-block: on a
+    mesh of more than one rank the half-block takes the unfused path
+    (kernel 1 and the pair on the rank's block)."""
+    return (cfg.fused_attn and not cfg.lora_rank and cfg.attn_impl == "pallas"
+            and not (mesh is not None and mesh.multi))
 
 
 def takes_fused_mlp(cfg: ModelConfig) -> bool:
@@ -239,11 +265,82 @@ class TransformerBlock(nn.Module):
                               cfg.gelu_approx)
         else:
             self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.gelu_approx, lora)
+        self.cfg = cfg
         self.fused_attn = takes_fused_attn(cfg)
         self.fused_mlp = takes_fused_mlp(cfg) and not moe
+        self.mesh = None
 
-    def forward_with_aux(self, x: torch.Tensor) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(output, the MoE load-balance loss or None for a dense block)."""
+    def set_mesh(self, mesh) -> None:
+        """Run on *mesh* (``parallel.mesh.Mesh``): the fused attention
+        half-block gives way to kernel 1 and the pair on a mesh of more than
+        one rank, an MoE block's load-balance means go over the data group,
+        and with tp > 1 the block runs tensor-parallel on the shards
+        ``parallel.mesh.shard_state`` cuts. Raises for what tp > 1 does not
+        take."""
+        if mesh.tp > 1:
+            if hasattr(self, "moe"):
+                raise NotImplementedError(f"MoE under model_parallel={mesh.tp} is not ported to "
+                                          "dinox_torch yet: module 13b")
+            if self.cfg.lora_rank:
+                raise NotImplementedError(f"LoRA under model_parallel={mesh.tp} is not ported to "
+                                          "dinox_torch yet: module 13b")
+            if self.fused_mlp:
+                raise ValueError("the fused MLP half-block computes the whole MLP on one card; it "
+                                 f"does not take model_parallel={mesh.tp}")
+            if self.cfg.heads % mesh.tp:
+                raise ValueError(f"heads={self.cfg.heads} not divisible by model axis size {mesh.tp}")
+        if hasattr(self, "moe"):
+            self.moe.data_group = mesh.data_group
+        self.mesh = mesh
+        self.fused_attn = takes_fused_attn(self.cfg, mesh)
+
+    def _row_parallel(self, lin: Linear, y: torch.Tensor, n_pad: Optional[int]) -> torch.Tensor:
+        """A row-parallel layer: this rank's partial product in float32,
+        summed over the model group (all-reduce; under sequence parallelism
+        a reduce-scatter of the tokens padded to *n_pad*), rounded once to
+        the compute dtype, then the bias added once, as the one-card
+        ``Linear`` rounds the whole product."""
+        g = self.mesh.model_group
+        part = torch.matmul(y.float(), lin.weight.to(y.dtype).float().t())
+        if n_pad is None:
+            part = reduce_from_group(part, g)
+        else:
+            part = scatter_rows(F.pad(part, (0, 0, 0, n_pad - part.shape[1])), g, 1)
+        return part.to(y.dtype) + lin.bias.to(y.dtype)
+
+    def _forward_tp(self, x: torch.Tensor, n_tokens: Optional[int]) -> torch.Tensor:
+        """The block on the model group (Megatron): qkv and fc1 hold this
+        rank's output columns, proj and fc2 its input rows. Without
+        sequence parallelism *x* is the whole residual stream on every rank;
+        the column layers' input is copied to the group (its gradient
+        all-reduced) and the row layers' output all-reduced. With it
+        (*n_tokens*, the true sequence length) *x* is this rank's token
+        chunk of the padded sequence: the norms and the residual run on the
+        chunk, the column layers' input is all-gathered (reduce-scattered in
+        the backward) and the row layers' output reduce-scattered."""
+        g, tp = self.mesh.model_group, self.mesh.tp
+        sp = n_tokens is not None
+        n_pad = x.shape[1] * tp if sp else None
+        a, m = self.attn, self.mlp
+        h = self.norm1(x)
+        h = gather_rows(h, g, 1)[:, :n_tokens] if sp else copy_to_group(h, g)
+        qkv = a.qkv(h)
+        if a.attn_impl == "pallas":
+            out = flash_attention_packed_sharded(qkv, a.heads, self.mesh)
+        else:
+            out = a.attend(qkv, a.heads // tp)
+        x = x + self._row_parallel(a.proj, out, n_pad)
+        h = self.norm2(x)
+        h = gather_rows(h, g, 1) if sp else copy_to_group(h, g)
+        h = F.gelu(m.fc1(h), approximate=m.approximate)
+        return x + self._row_parallel(m.fc2, h, n_pad)
+
+    def forward_with_aux(self, x: torch.Tensor, n_tokens: Optional[int] = None
+                         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(output, the MoE load-balance loss or None for a dense block).
+        *n_tokens* is set under sequence parallelism (:meth:`_forward_tp`)."""
+        if self.mesh is not None and self.mesh.tp > 1:
+            return self._forward_tp(x, n_tokens), None
         if self.fused_attn:
             a = self.attn
             x = fused_attn_block(x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
@@ -314,6 +411,7 @@ class PatchViT(nn.Module):
                              moe=cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1)
             for i in range(cfg.depth))
         self.norm = LayerNorm(d, torch.float32)
+        self.mesh = None  # set by set_mesh
         self.reset_parameters(generator)
         if device is not None:
             self.to(device)
@@ -401,16 +499,26 @@ class PatchViT(nn.Module):
         remat = self.cfg.use_grad_checkpoint and self.training and torch.is_grad_enabled()
         generators = list({id(m.generator): m.generator for m in self.lora_layers()
                            if m.generator is not None}.values()) if remat else []
+        # Sequence parallelism: the stack runs on this rank's chunk of the
+        # tokens, padded to a multiple of tp (the reference's _sp; GSPMD pads
+        # on its own), and the whole sequence is gathered after it.
+        mesh = self.mesh
+        n_tokens = None
+        if mesh is not None and mesh.tp > 1 and self.cfg.sequence_parallel:
+            n_tokens = x.shape[1]
+            x = split_to_group(F.pad(x, (0, 0, 0, -n_tokens % mesh.tp)), mesh.model_group, 1)
         auxes = []
         for blk in self.blocks:
             if remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    blk.forward_with_aux, x, use_reentrant=False,
+                    blk.forward_with_aux, x, n_tokens, use_reentrant=False,
                     context_fn=lambda: _replay_generators(generators))
             else:
-                x, aux = blk.forward_with_aux(x)
+                x, aux = blk.forward_with_aux(x, n_tokens)
             if aux is not None:
                 auxes.append(aux)
+        if n_tokens is not None:
+            x = gather_from_group(x, mesh.model_group, 1)[:, :n_tokens]
         return x, (sum(auxes) / len(auxes) if auxes else None)
 
     def enable_fused_attn(self) -> None:
@@ -419,7 +527,8 @@ class PatchViT(nn.Module):
         ``fused_attn``), the same parameters and outputs."""
         self.cfg = self.cfg.replace(fused_attn=True)
         for blk in self.blocks:
-            blk.fused_attn = takes_fused_attn(self.cfg)
+            blk.cfg = blk.cfg.replace(fused_attn=True)
+            blk.fused_attn = takes_fused_attn(blk.cfg, blk.mesh)
 
     def run_final_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x.float())
@@ -432,6 +541,18 @@ class PatchViT(nn.Module):
         """(all tokens, the mean MoE load-balance loss or None)."""
         x, aux = self.run_blocks_with_aux(self.embed(x, spacing))
         return self.run_final_norm(x), aux
+
+
+def set_mesh(model: nn.Module, mesh) -> None:
+    """Put *model* (a PatchViT, a DinoStudentTeacher or a MaeModel) on
+    *mesh*: every PatchViT (for sequence parallelism) and every block
+    (:meth:`TransformerBlock.set_mesh`). The parameters are cut by
+    ``parallel.mesh.shard_state``, which calls this."""
+    for m in model.modules():
+        if isinstance(m, PatchViT):
+            m.mesh = mesh
+        elif isinstance(m, TransformerBlock):
+            m.set_mesh(mesh)
 
 
 def _replay_generators(generators: list[torch.Generator]):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -164,20 +165,37 @@ def _crop_resize(img: torch.Tensor, top: torch.Tensor, left: torch.Tensor, ch: t
     return o.view(v, out_size, out_size, c).transpose(1, 2)
 
 
+def draw_rows(generator: torch.Generator, shape: tuple[int, int, int],
+              rows: Optional[tuple[int, int, int]]) -> torch.Tensor:
+    """Uniforms of *shape* ``(views, b, k)``: drawn for the global batch and
+    rows [lo, hi) of axis 1 taken when *rows* = (lo, hi, global_batch)."""
+    if rows is None:
+        return torch.rand(shape, generator=generator)
+    lo, hi, total = rows
+    if hi - lo != shape[1]:
+        raise ValueError(f"rows {rows} do not match a batch of {shape[1]}")
+    return torch.rand((shape[0], total, shape[2]), generator=generator)[:, lo:hi]
+
+
 # Uniforms drawn per (view, sample): level, width, 10 areas, 10 aspects, top, left, flip.
 _DRAWS = 2 + 2 * _CROP_ATTEMPTS + 3
 
 
 def augment_views(pixels: torch.Tensor, generator: torch.Generator,
-                  cfg: AugConfig = AugConfig()) -> torch.Tensor:
+                  cfg: AugConfig = AugConfig(),
+                  rows: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """Batched multi-view augmentation.
 
     pixels: (B, H, W, 3) uint16 canvases, on the device the views are made
     on. generator: a CPU ``torch.Generator`` that all randomness comes from.
-    Returns (n_views, B, S, S, 3) float32, ImageNet-normalised."""
+    *rows* ``(lo, hi, global_batch)``: *pixels* are rows [lo, hi) of a
+    global batch (a data-parallel rank's), and the draws are made for the
+    global batch and these rows taken, so the views are those of the
+    one-process run. Returns (n_views, B, S, S, 3) float32,
+    ImageNet-normalised."""
     b, h, w, _ = pixels.shape
     dev = pixels.device
-    u = torch.rand((cfg.n_views, b, _DRAWS), generator=generator).to(dev)
+    u = draw_rows(generator, (cfg.n_views, b, _DRAWS), rows).to(dev)
     views = []
     for uv in u:
         level = _uniform(uv[:, 0], cfg.level_min, cfg.level_max)

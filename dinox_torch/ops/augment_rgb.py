@@ -27,10 +27,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
-from dinox_torch.ops.augment import AugConfig, _crop_resize, _sample_crop_box
+from dinox_torch.ops.augment import AugConfig, _crop_resize, _sample_crop_box, draw_rows
 
 CIFAR_MEAN = (0.4914, 0.4822, 0.4465)
 CIFAR_STD = (0.2470, 0.2435, 0.2616)
@@ -125,15 +126,17 @@ def views_from_draws(images: torch.Tensor, u: torch.Tensor, cfg: RgbAugConfig) -
     return normalize_cifar(x)
 
 
-def augment_rgb_views(pixels, generator: torch.Generator,
-                      cfg: RgbAugConfig = RgbAugConfig()) -> torch.Tensor:
+def augment_rgb_views(pixels, generator: torch.Generator, cfg: RgbAugConfig = RgbAugConfig(),
+                      rows: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """Batched multi-view augmentation: (B, H, W, 3) uint8 or float pixels
     (a tensor on the device the views are made on, or a numpy array, taken
     to the CPU) -> (n_views, B, S, S, 3) float32. *generator* is a CPU
-    ``torch.Generator``; it gives (n_views, B, DRAWS) uniforms."""
+    ``torch.Generator``; it gives (n_views, B, DRAWS) uniforms (for the
+    global batch, rows [lo, hi) taken, with *rows* = (lo, hi,
+    global_batch), as ``augment.augment_views``)."""
     pixels = torch.as_tensor(pixels)
     b = pixels.shape[0]
-    u = torch.rand((cfg.n_views, b, DRAWS), generator=generator).to(pixels.device)
+    u = draw_rows(generator, (cfg.n_views, b, DRAWS), rows).to(pixels.device)
     images = pixels.unsqueeze(0).expand(cfg.n_views, *pixels.shape).reshape(-1, *pixels.shape[1:])
     out = views_from_draws(images, u.reshape(-1, DRAWS), cfg)
     return out.view(cfg.n_views, b, *out.shape[1:])

@@ -289,6 +289,29 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int) -> torch.Tensor:
 flash_attention_packed.launches = 0
 
 
+def flash_attention_packed_sharded(qkv: torch.Tensor, heads: int, mesh) -> torch.Tensor:
+    """The multi-rank dispatch of :func:`flash_attention_packed`: the
+    counterpart of the JAX package's ``flash_attention_packed_sharded``
+    (``dinox_tpu/ops/flash_attention.py:481``), a dispatch and not a kernel.
+
+    *qkv* is this rank's block ``(B/dp, N, 3*dim/tp)``: its own rows of the
+    batch, and the q, k and v columns of its ``heads // tp`` heads, packed
+    ``[q_r | k_r | v_r]`` as the column-parallel qkv layer lays them out
+    (``parallel.mesh.tp_param_spec`` cuts qkv by heads), so no reshard is
+    needed. Returns ``(B/dp, N, dim/tp)``, the heads' output columns that the
+    row-parallel proj contracts; kernel 1 forward and the dq + dkv pair
+    backward run on the block. Raises when *heads* does not divide by the
+    model axis or the block's width is not that of ``heads // tp`` heads;
+    the batch is cut, and checked, by ``parallel.mesh.batch_rows``."""
+    tp = mesh.tp
+    if heads % tp:
+        raise ValueError(f"heads={heads} not divisible by model axis size {tp}")
+    local = heads // tp
+    if qkv.shape[-1] % (3 * local):
+        raise ValueError(f"qkv width {qkv.shape[-1]} is not that of {local} packed heads")
+    return flash_attention_packed(qkv, local)
+
+
 # -- head-major (B, H, N, hd) attention: kernels 4 and 5 ----------------------
 
 

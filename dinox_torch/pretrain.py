@@ -14,9 +14,20 @@ Examples:
     python -m dinox_torch.pretrain --config vit-tiny --synthetic --max-steps 20 \\
         --batch-size 8 --img-size 56 --canvas 64 --run-dir /tmp/smoke --device cpu
 
-Options the port does not have yet raise NotImplementedError naming the
-module that brings them: model, pipeline, expert and sequence parallelism
-and multi-process runs (module 13).
+    # Two processes, one card each, data parallel (run each command on its
+    # host; --batch-size is the global batch)
+    python -m dinox_torch.pretrain --config vit-small --synthetic --batch-size 96 \
+        --run-dir /tmp/dp --dist-coordinator host0:29500 --dist-processes 2 --dist-process-id 0
+
+Multi-process runs (module 13a): ``--dist-processes W`` processes, one card
+each (``cuda:{rank % device_count}``), on the ``(data, model)`` mesh of
+``parallel.mesh`` with ``--model-parallel`` ranks to a model group and
+``--sequence-parallel``. They train what one process trains on the same
+global batch: each rank takes its data rank's rows, and rank 0 writes the
+run dir (config, metrics, checkpoints that one process resumes). A process
+group already set up by the caller with the same world size and rank is
+used as it is. Pipeline and expert parallelism raise NotImplementedError
+naming module 13b.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dinox_torch.data.index import exclude_val_series, load_index_rows, load_split_manifest, z_stride_subsample
 from dinox_torch.data.pipeline import Batch, TrainLoader
@@ -39,6 +51,7 @@ from dinox_torch.data.prefetch import DevicePrefetcher
 from dinox_torch.data.slice_cache import build_slice_cache, open_slice_cache
 from dinox_torch.data.synthetic import make_batch_fn, upsample
 from dinox_torch.models.config import MODEL_CONFIGS
+from dinox_torch.parallel.mesh import batch_rows, init_distributed, make_mesh
 from dinox_torch.train.checkpoint import CheckpointManager, CheckpointWedgedError, find_latest_run
 from dinox_torch.train.state import TrainConfig, create_train_state, reject_unported
 from dinox_torch.train.step import build_train_step
@@ -80,8 +93,9 @@ def parse_args(argv=None):
                    help="expert capacity factor (tokens/expert multiplier)")
     p.add_argument("--moe-aux-weight", type=float, default=0.01,
                    help="weight of the Switch load-balance loss")
-    p.add_argument("--expert-parallel", type=int, default=1, help="not ported: module 13")
-    p.add_argument("--sequence-parallel", action="store_true", help="not ported: module 13")
+    p.add_argument("--expert-parallel", type=int, default=1, help="above 1 not ported: module 13b")
+    p.add_argument("--sequence-parallel", action="store_true",
+                   help="with --model-parallel > 1: norms and the residual stream on token chunks")
     # training
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--accumulation-steps", type=int, default=1)
@@ -158,27 +172,47 @@ def parse_args(argv=None):
     p.add_argument("--profile-steps", type=int, default=0,
                    help="trace this many steps with torch.profiler into run_dir/profile")
     p.add_argument("--profile-start", type=int, default=2)
-    p.add_argument("--model-parallel", type=int, default=1, help="not ported: module 13")
-    p.add_argument("--pipeline-parallel", type=int, default=1, help="not ported: module 13")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks of a model group (tensor parallel); divides --dist-processes")
+    p.add_argument("--pipeline-parallel", type=int, default=1, help="above 1 not ported: module 13b")
     p.add_argument("--pp-microbatches", type=int, default=None)
-    p.add_argument("--dist-coordinator", default=None, help="not ported: module 13")
-    p.add_argument("--dist-processes", type=int, default=0, help="not ported: module 13")
-    p.add_argument("--dist-process-id", type=int, default=-1, help="not ported: module 13")
+    p.add_argument("--dist-coordinator", default=None,
+                   help="host:port of process 0's TCP store; with --dist-processes/--dist-process-id")
+    p.add_argument("--dist-processes", type=int, default=0)
+    p.add_argument("--dist-process-id", type=int, default=-1)
     return p.parse_args(argv)
 
 
-def reject_unported_flags(args) -> None:
-    """Raise for a flag whose feature the port does not have yet, naming the
-    module of the port's plan that brings it. --pipeline-parallel sets a
-    TrainConfig field and is refused by the train state's own check."""
-    for flag, given, module in (("--model-parallel", args.model_parallel > 1, 13),
-                                ("--expert-parallel", args.expert_parallel > 1, 13),
-                                ("--sequence-parallel", args.sequence_parallel, 13),
-                                ("--dist-coordinator", args.dist_coordinator is not None, 13),
-                                ("--dist-processes", args.dist_processes > 1, 13),
-                                ("--dist-process-id", args.dist_process_id >= 0, 13)):
-        if given:
-            raise NotImplementedError(f"{flag} is not ported to dinox_torch yet: module {module}")
+def join_processes(args, device: torch.device) -> bool:
+    """Join the process group of ``--dist-processes`` > 1 (nothing for one
+    process). A default group the caller already started is used when its
+    world size and rank are these; returns True when this call started one."""
+    if args.dist_processes <= 1:
+        return False
+    world, rank = args.dist_processes, args.dist_process_id
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (world, rank):
+            raise ValueError(f"the process group has world size {dist.get_world_size()} and rank "
+                             f"{dist.get_rank()}, not --dist-processes {world} --dist-process-id {rank}")
+        return False
+    if args.dist_coordinator is None or not 0 <= rank < world:
+        raise ValueError(f"--dist-processes {world} needs --dist-coordinator host:port and a "
+                         f"--dist-process-id in [0, {world})")
+    init_distributed(args.dist_coordinator, world, rank, device=device)
+    return True
+
+
+class RankRows:
+    """The rows [lo, hi) of every global batch of *batches*: a data rank's
+    share of batches that every rank makes whole from the seed."""
+
+    def __init__(self, batches, lo: int, hi: int):
+        self.batches, self.lo, self.hi = batches, lo, hi
+
+    def __iter__(self):
+        for b in self.batches:
+            yield Batch(pixels=b.pixels[:, self.lo:self.hi], spacing=b.spacing[:, self.lo:self.hi],
+                        indices=None if b.indices is None else b.indices[self.lo:self.hi])
 
 
 class SyntheticBatches:
@@ -296,7 +330,7 @@ def data_manifest_hash(index_csv: Path) -> str:
 _RUNTIME_ONLY_MODEL_FIELDS = {"attn_impl", "fused_attn", "fused_mlp", "use_grad_checkpoint"}
 
 
-def reconcile_resume_model_config(mcfg, stored: dict):
+def reconcile_resume_model_config(mcfg, stored: dict, say=print):
     """Resume continues the run it restores: numerics-affecting model fields
     are adopted from the run dir's stored config.json instead of the CLI
     rebuild. Runtime-only kernel choices stay CLI-controlled. Every adopted
@@ -308,14 +342,15 @@ def reconcile_resume_model_config(mcfg, stored: dict):
         if isinstance(cur, tuple) and isinstance(v, list):
             v = tuple(v)
         if cur != v:
-            print(f"resume: adopting stored model.{k}={v!r} (CLI had {cur!r})", flush=True)
+            say(f"resume: adopting stored model.{k}={v!r} (CLI had {cur!r})", flush=True)
             mcfg = mcfg.replace(**{k: v})
     return mcfg
 
 
-def monitor_hook(args, cfg: TrainConfig, loader):
+def monitor_hook(args, cfg: TrainConfig, loader, writes: bool = True):
     """The ``on_step`` hook of ``--monitor-every``: a TrainingMonitor on the
-    first 8 slices of the loader, or 8 synthetic canvases from seed 0."""
+    first 8 slices of the loader, or 8 synthetic canvases from seed 0. Every
+    rank of a mesh runs the snapshot's forward; only *writes* writes it."""
     from dinox_torch.train.monitor_hook import TrainingMonitor
 
     if loader is not None:
@@ -329,7 +364,7 @@ def monitor_hook(args, cfg: TrainConfig, loader):
         probe_sp = rng.uniform(0.4, 3.0, (8, 3)).astype(np.float32)
     monitor = TrainingMonitor(args.run_dir, cfg.model.replace(img_size=cfg.img_size), probe_px,
                               probe_sp, every=args.monitor_every,
-                              tensorboard=not args.no_tensorboard)
+                              tensorboard=not args.no_tensorboard, writes=writes)
 
     def on_step(step, _metrics, state) -> None:
         monitor.maybe_snapshot(step, state.student)
@@ -340,9 +375,25 @@ def monitor_hook(args, cfg: TrainConfig, loader):
 def main(argv=None) -> int:
     t_main = time.monotonic()
     args = parse_args(argv)
-    reject_unported_flags(args)
-
+    if args.expert_parallel > 1:
+        raise NotImplementedError(f"--expert-parallel {args.expert_parallel} is not ported to "
+                                  "dinox_torch yet: module 13b")
     device = resolve_device(args.device)
+    started = join_processes(args, device)
+    try:
+        return run(args, device, t_main, argv)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def run(args, device: torch.device, t_main: float, argv) -> int:
+    mesh = None
+    if args.dist_processes > 1 or args.model_parallel > 1:
+        mesh = make_mesh(model_parallel=args.model_parallel, device=device)
+        device = mesh.device
+    main_rank = mesh is None or mesh.rank == 0
+    say = print if main_rank else (lambda *a, **k: None)
     mcfg = MODEL_CONFIGS[args.config].replace(
         scale_aware=args.scale_aware,
         attn_impl=args.attn_impl,
@@ -353,6 +404,7 @@ def main(argv=None) -> int:
         moe_experts=args.moe_experts,
         moe_every=args.moe_every,
         moe_capacity_factor=args.moe_capacity,
+        sequence_parallel=args.sequence_parallel,
     )
     # Resolve resume BEFORE building state: the resumed run's stored model
     # config wins over CLI-rebuilt fields (reconcile_resume_model_config).
@@ -363,7 +415,7 @@ def main(argv=None) -> int:
         resume_dir = Path(args.resume)
     if resume_dir is not None and (resume_dir / "config.json").exists():
         stored_cfg = json.loads((resume_dir / "config.json").read_text())
-        mcfg = reconcile_resume_model_config(mcfg, stored_cfg.get("model", {}))
+        mcfg = reconcile_resume_model_config(mcfg, stored_cfg.get("model", {}), say)
     cfg = TrainConfig(
         model=mcfg,
         img_size=args.img_size,
@@ -395,10 +447,18 @@ def main(argv=None) -> int:
     )
 
     reject_unported(cfg)
+    if mesh is not None and args.batch_size % mesh.dp:
+        print(f"error: --batch-size {args.batch_size} is the GLOBAL batch and must be divisible "
+              f"by the data axis size {mesh.dp}", file=sys.stderr)
+        return 2
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"device={device} ({name})", flush=True)
-    print(f"config={args.config} params~{mcfg.params_millions:.1f}M "
-          f"eff_batch={cfg.effective_batch_size} scale_aware={mcfg.scale_aware}", flush=True)
+    say(f"device={device} ({name})", flush=True)
+    if mesh is not None:
+        say(f"mesh: {mesh.world} processes on {mesh.hosts} host(s), data {mesh.dp} x model "
+            f"{mesh.tp}, sequence_parallel={mcfg.sequence_parallel}, "
+            f"{args.batch_size // mesh.dp} rows a data rank", flush=True)
+    say(f"config={args.config} params~{mcfg.params_millions:.1f}M "
+        f"eff_batch={cfg.effective_batch_size} scale_aware={mcfg.scale_aware}", flush=True)
     provenance = {
         "git_commit": get_git_commit(Path(__file__).resolve().parent.parent),
         "data_manifest_hash": data_manifest_hash(args.index_csv) if args.index_csv else "synthetic",
@@ -426,11 +486,11 @@ def main(argv=None) -> int:
             print("error: --index-csv required unless --synthetic", file=sys.stderr)
             return 2
         rows = load_index_rows(args.index_csv, require_spacing=args.scale_aware)
-        print(f"loaded_rows={len(rows)}", flush=True)
+        say(f"loaded_rows={len(rows)}", flush=True)
         if args.split_manifest and args.split_manifest.exists():
             before = len(rows)
             rows = exclude_val_series(rows, load_split_manifest(args.split_manifest))
-            print(f"excluded_val_rows={before - len(rows)}", flush=True)
+            say(f"excluded_val_rows={before - len(rows)}", flush=True)
         rows = z_stride_subsample(rows, args.z_stride)
         decoded_cache = None
         if args.decoded_cache != "off":
@@ -439,27 +499,30 @@ def main(argv=None) -> int:
                 build_slice_cache(rows, args.canvas, index_dir, workers=args.num_workers)
             decoded_cache = open_slice_cache(index_dir, args.canvas)
             if decoded_cache is not None:
-                print(f"decoded-slice cache: {len(decoded_cache)} slices @{args.canvas} "
-                      f"(zlib inflate off the hot path)", flush=True)
-        print(f"png decoder: {decoder_in_use()}", flush=True)
-        loader = TrainLoader(rows, args.batch_size, seed=args.seed, canvas=args.canvas,
+                say(f"decoded-slice cache: {len(decoded_cache)} slices @{args.canvas} "
+                    f"(zlib inflate off the hot path)", flush=True)
+        say(f"png decoder: {decoder_in_use()}", flush=True)
+        # A data rank's loader reads its block of each global batch; the
+        # model group's ranks read the same rows.
+        dp, dp_rank = (1, 0) if mesh is None else (mesh.dp, mesh.dp_rank)
+        loader = TrainLoader(rows, args.batch_size // dp, seed=args.seed, canvas=args.canvas,
                              diverse=args.diverse_batches, num_workers=args.num_workers,
-                             decoded_cache=decoded_cache)
+                             host_id=dp_rank, num_hosts=dp, decoded_cache=decoded_cache)
         batches = AccumBatches(loader, args.accumulation_steps)
 
     # -- state / resume -----------------------------------------------------
     if loader is not None and args.device_prefetch > 0:
         batches = DevicePrefetcher(batches, device=device, depth=args.device_prefetch)
-    state = create_train_state(cfg, seed=args.seed, device=device)
+    state = create_train_state(cfg, seed=args.seed, device=device, mesh=mesh)
     start_step = 0
     if resume_dir is not None and (resume_dir / "ckpt").exists():
         t0 = time.monotonic()
-        mgr = CheckpointManager(resume_dir, keep_last=args.ckpt_keep_last)
+        mgr = CheckpointManager(resume_dir, keep_last=args.ckpt_keep_last, mesh=mesh)
         state, meta = mgr.restore(state)
         mgr.close()
         start_step = int(meta["step"])
-        print(f"resumed from {resume_dir} at step {start_step} "
-              f"(restore_s={time.monotonic() - t0:.3f})", flush=True)
+        say(f"resumed from {resume_dir} at step {start_step} "
+            f"(restore_s={time.monotonic() - t0:.3f})", flush=True)
         if loader is not None:
             loader.epoch = meta.get("loader_epoch", 0)
             loader.batch_in_epoch = meta.get("loader_batch", 0)
@@ -476,16 +539,19 @@ def main(argv=None) -> int:
         def loader_position() -> tuple[int, int]:
             n = start_batch + (state.step - start_step) * args.accumulation_steps
             return start_epoch + n // per_epoch, n % per_epoch
-    step_fn = build_train_step(cfg, device=device)
+    if mesh is not None and loader is None:  # synthetic batches are made whole on every rank
+        batches = RankRows(batches, *batch_rows(mesh, args.batch_size))
+    step_fn = build_train_step(cfg, device=device, mesh=mesh)
     on_step = None
     if args.monitor_every > 0:
-        on_step = monitor_hook(args, cfg, loader)
+        on_step = monitor_hook(args, cfg, loader, writes=main_rank)
 
     args.run_dir.mkdir(parents=True, exist_ok=True)
-    (args.run_dir / "provenance.json").write_text(json.dumps(provenance, indent=2))
+    if main_rank:
+        (args.run_dir / "provenance.json").write_text(json.dumps(provenance, indent=2))
 
     t0 = time.monotonic()
-    print(f"startup_s={t0 - t_main:.3f}", flush=True)
+    say(f"startup_s={t0 - t_main:.3f}", flush=True)
     stop_at = min(args.stop_after or args.max_steps, args.max_steps)
     try:
         state = train(
@@ -506,6 +572,7 @@ def main(argv=None) -> int:
             on_step=on_step,
             profile_steps=args.profile_steps,
             profile_start=args.profile_start,
+            mesh=mesh,
         )
     except CheckpointWedgedError as e:
         # Training finished but the final state could not be written; a daemon
@@ -520,6 +587,8 @@ def main(argv=None) -> int:
             loader.close()
     dt = time.monotonic() - t0
     steps_done = state.step - start_step
+    if not main_rank:
+        return 0
     ckpt_stats = json.loads((args.run_dir / "checkpoints.json").read_text())
     print(f"checkpoints saves={ckpt_stats['saves']} bytes={ckpt_stats['bytes']} "
           f"blocked_s={ckpt_stats['blocked_s']:.3f} alloc_s={ckpt_stats['alloc_s']:.3f} "

@@ -33,6 +33,14 @@ pure function of (seed, step, micro-batch), so no RNG state is saved.
 timeout the operation is abandoned on a daemon thread, ``wedged`` is set and
 every later checkpoint operation is a logged no-op, so a run's metrics
 survive a state that cannot be written.
+
+On a mesh (``parallel.mesh``) every rank calls :meth:`save` and
+:meth:`restore`. Rank 0 writes the full state (``gather_state``: the model
+group's shards put back together): the same files, keys, shapes and dtypes
+a one-process run writes, so ``check_checkpoint``, ``run_export`` and a
+one-process resume read them unchanged. Every rank restores the full file
+and cuts its shard. A barrier of every process comes after the write is
+waited for (:meth:`wait`, :meth:`close`) and before a restore reads.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from dinox_torch.parallel.mesh import Mesh, gather_tensors, host_barrier, shard_tensors
 from dinox_torch.train.state import TrainState
 from dinox_torch.zoo.safetensors_io import load_file, save_file, torch_to_numpy
 
@@ -120,8 +129,10 @@ class CheckpointManager:
     host copy, serialisation, rename)."""
 
     def __init__(self, run_dir: str | Path, keep_last: int = 5, async_save: bool = True,
-                 save_timeout_s: Optional[float] = None):
+                 save_timeout_s: Optional[float] = None, mesh: Optional[Mesh] = None):
         self.run_dir = Path(run_dir).absolute()
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         self.ckpt_dir = self.run_dir / "ckpt"
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
@@ -186,6 +197,8 @@ class CheckpointManager:
         multi-tensor copy). Returns
         (CPU clones, device snapshot, (start, end) events or None)."""
         tensors = {k: v.detach() for k, v in state_tensors(state).items()}
+        if self.mesh is not None:
+            tensors = gather_tensors(tensors, self.mesh)
         host = {k: v.clone() for k, v in tensors.items() if not v.is_cuda}
         on_card = {k: v for k, v in tensors.items() if v.is_cuda}
         if not on_card:
@@ -252,6 +265,9 @@ class CheckpointManager:
     def _save(self, step: int, state: TrainState, meta: dict[str, Any]) -> None:
         t0 = time.perf_counter()
         self._join()
+        if not self.writes:  # the other ranks take part in the gather, then go on
+            gather_tensors(state_tensors(state), self.mesh)
+            return
         snapshot = self._snapshot(state)
         if self.async_save:
             def write() -> None:
@@ -298,11 +314,19 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.run_dir}")
         d = self.ckpt_dir / str(step)
-        state = load_state_tensors(state_template, load_file(d / STATE_FILE))
+        arrays = load_file(d / STATE_FILE)
+        if self.mesh is not None:
+            arrays = shard_tensors(arrays, self.mesh)
+        state = load_state_tensors(state_template, arrays)
         return state, json.loads((d / META_FILE).read_text())
 
     def wait(self) -> None:
+        """Wait for the write in flight; on a mesh of more than one rank,
+        then a barrier of every process, so no rank reads or goes on before
+        the file is in place."""
         self._guarded(self._join, "wait_until_finished")
+        if self.mesh is not None and self.mesh.multi:
+            host_barrier("dinox_torch:checkpoint")
 
     def close(self) -> None:
         self.wait()
@@ -311,7 +335,8 @@ class CheckpointManager:
         """Synchronous save on an anomaly (NaN/Inf), with an EMERGENCY.txt
         beside the checkpoints."""
         log.error("EMERGENCY checkpoint at step %d: %s", step, reason)
-        (self.run_dir / "EMERGENCY.txt").write_text(f"step={step}\nreason={reason}\n")
+        if self.writes:
+            (self.run_dir / "EMERGENCY.txt").write_text(f"step={step}\nreason={reason}\n")
         self.save(step, state)
         self.wait()
 

@@ -5,6 +5,17 @@ anchoring, KoLeo and SimCLR/NT-Xent. The counterpart of
 Everything runs in float32. The matmuls are full float32 (the JAX package
 asks for ``Precision.HIGHEST``): on CUDA that needs TF32 off, which
 ``utils.platform.resolve_device`` sets.
+
+Global-batch reductions, as the JAX package's losses are under a sharded
+batch: each loss takes an optional data-parallel *group* (``None`` keeps the
+one-process maths). DINO's centre batch mean and both entropies are group
+means; KoLeo's nearest neighbours and NT-Xent's negatives run over the rows
+gathered from the whole group (``parallel.collectives.gather_rows``, whose
+backward sums the rows' gradients over the group); the per-sample means
+(DINO's cross-entropies, Gram, MAE) are averaged across the group by
+``mean_over_group``. So each loss's value is the global batch's on every
+rank, and the group mean of the ranks' gradients, which the train step
+takes, is the global batch's gradient.
 """
 
 from __future__ import annotations
@@ -13,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from dinox_torch.parallel.collectives import Group, all_reduce, gather_rows, mean_over_group
 
 
 class DinoLossOut(NamedTuple):
@@ -24,7 +37,7 @@ class DinoLossOut(NamedTuple):
 
 def dino_loss(student_out: torch.Tensor, teacher_out: torch.Tensor, center: torch.Tensor, *,
               student_temp: float = 0.1, teacher_temp: float = 0.04,
-              center_momentum: float = 0.999) -> DinoLossOut:
+              center_momentum: float = 0.999, group: Group = None) -> DinoLossOut:
     """Cross-view DINO cross-entropy with teacher centring and sharpening.
 
     Inputs are the two-view head outputs ``[view1; view2]`` (2B, K). The loss
@@ -41,14 +54,19 @@ def dino_loss(student_out: torch.Tensor, teacher_out: torch.Tensor, center: torc
     b = teacher_out.shape[0] // 2
     ce_12 = -torch.mean(torch.sum(t_prob[:b] * s_logprob[b:], dim=-1))
     ce_21 = -torch.mean(torch.sum(t_prob[b:] * s_logprob[:b], dim=-1))
-    loss = (ce_12 + ce_21) / 2.0
+    loss = mean_over_group((ce_12 + ce_21) / 2.0, group)
 
-    batch_center = torch.mean(teacher_out, dim=0, keepdim=True)
+    batch_center = _group_mean(torch.mean(teacher_out, dim=0, keepdim=True), group)
     new_center = center * center_momentum + batch_center * (1.0 - center_momentum)
 
     t_entropy = -torch.mean(torch.sum(t_prob * t_logprob, dim=-1))
     s_entropy = -torch.mean(torch.sum(torch.exp(s_logprob) * s_logprob, dim=-1))
-    return DinoLossOut(loss, new_center, t_entropy.detach(), s_entropy.detach())
+    return DinoLossOut(loss, new_center, _group_mean(t_entropy.detach(), group),
+                       _group_mean(s_entropy.detach(), group))
+
+
+def _group_mean(x: torch.Tensor, group: Group) -> torch.Tensor:
+    return x if group is None else all_reduce(x, group, "mean")
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -61,27 +79,34 @@ def gram_matrix(tokens: torch.Tensor) -> torch.Tensor:
     return torch.matmul(t, t.transpose(-1, -2))
 
 
-def gram_anchoring_loss(student_feats: torch.Tensor, teacher_feats: torch.Tensor) -> torch.Tensor:
+def gram_anchoring_loss(student_feats: torch.Tensor, teacher_feats: torch.Tensor,
+                        group: Group = None) -> torch.Tensor:
     """MSE between the student's and the teacher's Gram matrices of
     ``feats[:, 1:]``: CLS is dropped, the registers (last) are kept."""
     g_s = gram_matrix(student_feats[:, 1:])
     g_t = gram_matrix(teacher_feats[:, 1:].detach())
-    return torch.mean((g_s - g_t) ** 2)
+    return mean_over_group(torch.mean((g_s - g_t) ** 2), group)
 
 
-def koleo_loss(features: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+def koleo_loss(features: torch.Tensor, eps: float = 1e-8, group: Group = None) -> torch.Tensor:
     """Kozachenko-Leonenko regulariser: -mean log(nearest-neighbour distance)
-    over the L2-normalised batch, from the cosine Gram (d^2 = 2 - 2 cos)."""
-    x = _l2_normalize(features.float())
+    over the L2-normalised batch, from the cosine Gram (d^2 = 2 - 2 cos).
+    With a *group*, over the rows of the whole group (the loss does not
+    depend on their order)."""
+    x = _l2_normalize(gather_rows(features.float(), group))
     sq = torch.clamp_min(2.0 - 2.0 * torch.matmul(x, x.t()), 0.0)
     sq = sq + torch.eye(x.shape[0], dtype=sq.dtype, device=sq.device) * 1e18  # mask self
     nn_dist = torch.sqrt(torch.amin(sq, dim=1))
     return -torch.mean(torch.log(nn_dist + eps))
 
 
-def simclr_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1) -> torch.Tensor:
-    """NT-Xent over the 2B-sample batch; positives are the cross-view pairs."""
-    feats = torch.cat([_l2_normalize(z1.float()), _l2_normalize(z2.float())], dim=0)
+def simclr_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.1,
+                group: Group = None) -> torch.Tensor:
+    """NT-Xent over the 2B-sample batch; positives are the cross-view pairs.
+    With a *group*, each view's rows are gathered from the whole group in
+    rank order, which is the global batch's order."""
+    z1, z2 = gather_rows(z1.float(), group), gather_rows(z2.float(), group)
+    feats = torch.cat([_l2_normalize(z1), _l2_normalize(z2)], dim=0)
     b = z1.shape[0]
     logits = torch.matmul(feats, feats.t()) / temperature
     eye = torch.eye(2 * b, dtype=torch.bool, device=logits.device)

@@ -64,11 +64,16 @@ def backbone_of(student: nn.Module) -> Optional[nn.Module]:
 
 class TrainingMonitor:
     def __init__(self, run_dir: str | Path, model_cfg: ModelConfig, probe_pixels: np.ndarray,
-                 probe_spacing: np.ndarray, every: int = 1000, tensorboard: bool = True):
+                 probe_spacing: np.ndarray, every: int = 1000, tensorboard: bool = True,
+                 writes: bool = True):
+        """*writes* False: the snapshot's forward runs (a rank of a mesh
+        takes part in its collectives) and nothing is written."""
         self.dir = Path(run_dir) / "monitor"
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writes = writes
+        if writes:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._tb = None
-        if tensorboard:
+        if tensorboard and writes:
             try:
                 from torch.utils.tensorboard import SummaryWriter
 
@@ -95,6 +100,8 @@ class TrainingMonitor:
         if backbone is None:
             return None
         feats = self.embed(backbone)
+        if not self.writes:
+            return None
         cls = feats[:, 0]
         n_patches = (self.cfg.img_size // self.cfg.patch) ** 2
         patches = feats[:, 1:1 + n_patches]

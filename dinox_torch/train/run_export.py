@@ -81,7 +81,7 @@ def load_backbone_from_run(run_dir: str | Path, step: Optional[int] = None,
     cfg = train_config_from_run(run_dir)
     if cfg.pipeline_parallel > 1:
         raise NotImplementedError("pipeline-parallel run dirs are not ported to dinox_torch yet: "
-                                  "module 13")
+                                  "module 13b")
     mae = cfg.loss_type == "mae"  # the MAE student's backbone is its encoder
     prefix = f"{source}.encoder." if mae else f"{source}.backbone."
     arrays = load_file(_checkpoint_dir(run_dir, step) / STATE_FILE,

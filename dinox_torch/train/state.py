@@ -31,6 +31,7 @@ from dinox_torch.models.config import MODEL_CONFIGS, ModelConfig
 from dinox_torch.models.mae import MaeModel
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import AugConfig
+from dinox_torch.parallel.mesh import Mesh, shard_state
 from dinox_torch.train.optim import DTYPES, build_adam
 from dinox_torch.train.schedule import get_lr
 from dinox_torch.utils.platform import resolve_device
@@ -95,12 +96,22 @@ def reject_unported(cfg: TrainConfig) -> None:
     of the port's plan that brings each, and for unknown values."""
     if cfg.pipeline_parallel > 1:
         raise NotImplementedError(f"pipeline_parallel={cfg.pipeline_parallel!r} is not ported to "
-                                  "dinox_torch yet: module 13")
+                                  "dinox_torch yet: module 13b")
     if cfg.loss_type not in ("dino", "simclr", "mae"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
     for field in ("mu_dtype", "nu_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise ValueError(f"{field} must be one of {sorted(DTYPES)}, got {getattr(cfg, field)!r}")
+
+
+def check_mesh(cfg: TrainConfig, mesh: Optional[Mesh]) -> None:
+    """Raise for what the mesh does not take: factored Adam moments under
+    tp > 1 (their row and column statistics are over the whole parameter;
+    reducing them across the model group is module 13b). The model's own
+    limits are checked by ``models.vit.set_mesh``."""
+    if mesh is not None and mesh.tp > 1 and cfg.factored_nu:
+        raise NotImplementedError(f"factored_nu under model_parallel={mesh.tp} is not ported to "
+                                  "dinox_torch yet: module 13b")
 
 
 Student = DinoStudentTeacher | MaeModel
@@ -167,17 +178,26 @@ def _student(cfg: TrainConfig, dev: torch.device, seed: int = 0) -> Student:
     return DinoStudentTeacher(_model_config(cfg), generator=g, device=dev).train()
 
 
+def _device(device: torch.device | str | None, mesh: Optional[Mesh]) -> torch.device:
+    return resolve_device(mesh.device if device is None and mesh is not None else device)
+
+
 def create_train_state(cfg: TrainConfig, seed: int = 0,
-                       device: torch.device | str | None = None) -> TrainState:
+                       device: torch.device | str | None = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A fresh state: the student's parameters from *seed*, the teacher a
     frozen copy of it, the centre zeros (1, out_dim). On the card unless
-    *device* is ``"cpu"``."""
+    *device* is ``"cpu"`` (the mesh's device by default). On a *mesh* the
+    full state is built from the seed on every rank, as one process builds
+    it, then cut to this rank's shard (``parallel.mesh.shard_state``)."""
     reject_unported(cfg)
-    dev = resolve_device(device)
+    check_mesh(cfg, mesh)
+    dev = _device(device, mesh)
     student = _student(cfg, dev, seed)
-    return TrainState(step=0, student=student, teacher=_teacher_of(student),
-                      optimizer=make_optimizer(cfg, student),
-                      center=torch.zeros((1, cfg.model.out_dim), dtype=torch.float32, device=dev))
+    state = TrainState(step=0, student=student, teacher=_teacher_of(student),
+                       optimizer=make_optimizer(cfg, student),
+                       center=torch.zeros((1, cfg.model.out_dim), dtype=torch.float32, device=dev))
+    return state if mesh is None else shard_state(state, mesh)
 
 
 def _to_torch(cfg: TrainConfig):
@@ -191,7 +211,8 @@ def _tensors(cfg: TrainConfig, tree: Mapping[str, Any], dev: torch.device,
 
 
 def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
-                   device: torch.device | str | None = None) -> TrainState:
+                   device: torch.device | str | None = None,
+                   mesh: Optional[Mesh] = None) -> TrainState:
     """The port's state from a JAX-package state given as numpy: a mapping
     with ``step``, ``student`` and ``teacher`` (parameter trees), ``center``,
     and the Adam moments ``mu`` and ``nu`` (trees shaped like the student)
@@ -203,9 +224,11 @@ def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
     the trailing axes of its JAX layout (``train.optim.AdamFactored``; for a
     dense weight the port's ``(out, in)`` rows are JAX's columns, so JAX's
     ``r`` runs along the port's input axis). Moments are stored in
-    ``mu_dtype``/``nu_dtype``."""
+    ``mu_dtype``/``nu_dtype``. On a *mesh* the state is then cut to this
+    rank's shard, as :func:`create_train_state` cuts it."""
     reject_unported(cfg)
-    dev = resolve_device(device)
+    check_mesh(cfg, mesh)
+    dev = _device(device, mesh)
     student = _student(cfg, dev)
     student.load_state_dict(_tensors(cfg, tree["student"], dev), strict=True)
     teacher = _teacher_of(student)
@@ -225,8 +248,9 @@ def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
             st["exp_avg_sq"] = nu[name]
         opt.state[p] = st
     center = torch.tensor(np.asarray(tree["center"], np.float32), device=dev)
-    return TrainState(step=int(np.asarray(tree["step"])), student=student, teacher=teacher,
-                      optimizer=opt, center=center)
+    state = TrainState(step=int(np.asarray(tree["step"])), student=student, teacher=teacher,
+                       optimizer=opt, center=center)
+    return state if mesh is None else shard_state(state, mesh)
 
 
 def _factored_nu(cfg: TrainConfig, tree: Mapping[str, Any], dev: torch.device

@@ -20,6 +20,20 @@ prediction.
 Randomness: a CPU ``torch.Generator`` per (train_seed, step, micro-batch)
 for the augmentation, another for the spacing jitter and a third for the
 MAE mask noise.
+
+On a mesh (``parallel.mesh.Mesh``; the counterpart of the JAX step's
+``mesh``) each rank takes its rows ``[lo, hi)`` of the global batch, and
+every draw is made at the global shape and the rank's rows taken (rows
+``[lo:hi]`` and ``[B+lo:B+hi]`` of the ``[view1; view2]`` layout), so the
+ranks see the views of the one-process run. The losses reduce over the data
+group (``train.losses``); after accumulation one bucketed all-reduce gives
+the data group's mean gradient; under sequence parallelism the replicated
+block parameters whose gradient comes from token chunks (the norms, the
+row-parallel biases) are also summed over the model group. ``grad_norm``
+is the full parameters' (a sharded tensor's squares summed over the model
+group, a replicated one counted once), and the metrics are the data group's
+means, so every rank holds the same values. With one rank the step is the
+one without a mesh, to the bit.
 """
 
 from __future__ import annotations
@@ -31,9 +45,18 @@ import torch
 from dinox_torch.models.mae import mae_loss
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import augment_views
+from dinox_torch.parallel.collectives import Group, all_reduce, all_reduce_bucket, gather_rows
+from dinox_torch.parallel.mesh import Mesh, tp_param_spec
 from dinox_torch.train.losses import dino_loss, gram_anchoring_loss, koleo_loss, simclr_loss
 from dinox_torch.train.schedule import get_lr_tensor
-from dinox_torch.train.state import Student, TrainConfig, TrainState, apply_gradients, reject_unported
+from dinox_torch.train.state import (
+    Student,
+    TrainConfig,
+    TrainState,
+    apply_gradients,
+    check_mesh,
+    reject_unported,
+)
 from dinox_torch.utils.platform import resolve_device
 from dinox_torch.utils.rng import seeded_generator
 
@@ -41,31 +64,55 @@ METRICS = ("loss", "loss_dino", "loss_gram", "loss_koleo", "loss_simclr", "loss_
            "teacher_entropy", "student_entropy", "embed_std", "grad_norm", "lr")
 
 
+def _view_rows(rows: tuple[int, int, int]) -> torch.Tensor:
+    """Indices of a rank's rows [lo, hi) in the global [view1; view2] layout."""
+    lo, hi, total = rows
+    return torch.cat([torch.arange(lo, hi), torch.arange(total + lo, total + hi)])
+
+
+def _global_std(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The population std of every element of *x* over the group (equal
+    shapes on every rank), in two passes as ``torch.std`` takes it."""
+    if group is None:
+        return torch.std(x, correction=0)
+    mean = all_reduce(x.mean(), group, "mean")
+    return torch.sqrt(all_reduce(((x - mean) ** 2).mean(), group, "mean"))
+
+
 def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
                batch: torch.Tensor, spacing: Optional[torch.Tensor], cfg: TrainConfig,
                jitter: Optional[torch.Generator] = None,
-               mask_noise: Optional[torch.Tensor | torch.Generator] = None
+               mask_noise: Optional[torch.Tensor | torch.Generator] = None,
+               group: Group = None, rows: Optional[tuple[int, int, int]] = None
                ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """Loss over one augmented (2B, S, S, 3) micro-batch with spacing (B, 3).
     *mask_noise* is MAE's (2B, L) noise or a generator to draw it from.
-    Returns (loss, new centre, metrics)."""
+    *group* is the data-parallel group the losses reduce over and *rows*
+    ``(lo, hi, global_batch)`` the rank's rows, at whose global shape the
+    jitter and the mask noise are drawn. Returns (loss, new centre, metrics)."""
     zero = torch.zeros((), dtype=torch.float32, device=batch.device)
     if cfg.loss_type == "mae":
+        if rows is not None and isinstance(mask_noise, torch.Generator):
+            n = 2 * rows[2], student.cfg.n_patches
+            mask_noise = torch.rand(n, generator=mask_noise)[_view_rows(rows)]
         pred, mask = student(batch, mask_noise)
-        loss = mae_loss(pred, batch, mask, cfg.model.patch)
+        loss = mae_loss(pred, batch, mask, cfg.model.patch, group)
         metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
                        loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
-                       embed_std=torch.std(pred.float(), correction=0), loss=loss)
+                       embed_std=_global_std(pred.detach().float(), group), loss=loss)
         return loss, center, {k: v.detach() for k, v in metrics.items()}
     sp2 = torch.cat([spacing, spacing], dim=0) if cfg.model.scale_aware else None
     if sp2 is not None and cfg.spacing_jitter > 0:
-        noise = torch.randn(sp2.shape, generator=jitter).to(sp2.device)
-        sp2 = sp2 * torch.exp(cfg.spacing_jitter * noise)
+        if rows is None:
+            noise = torch.randn(sp2.shape, generator=jitter)
+        else:
+            noise = torch.randn((2 * rows[2], 3), generator=jitter)[_view_rows(rows)]
+        sp2 = sp2 * torch.exp(cfg.spacing_jitter * noise.to(sp2.device))
 
     s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
     if cfg.loss_type == "simclr":
         b = s_out.shape[0] // 2
-        loss = simclr_loss(s_out[:b], s_out[b:], cfg.student_temp)
+        loss = simclr_loss(s_out[:b], s_out[b:], cfg.student_temp, group)
         new_center = center
         metrics = dict(loss_simclr=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
                        loss_mae=zero, teacher_entropy=zero, student_entropy=zero)
@@ -73,9 +120,10 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
         with torch.no_grad():
             t_out, t_feats = teacher.forward_features(batch, sp2)
         d = dino_loss(s_out, t_out, center, student_temp=cfg.student_temp,
-                      teacher_temp=cfg.teacher_temp, center_momentum=cfg.center_momentum)
-        g = gram_anchoring_loss(s_feats, t_feats)
-        k = koleo_loss(s_out) if cfg.koleo_weight > 0 else zero
+                      teacher_temp=cfg.teacher_temp, center_momentum=cfg.center_momentum,
+                      group=group)
+        g = gram_anchoring_loss(s_feats, t_feats, group)
+        k = koleo_loss(s_out, group=group) if cfg.koleo_weight > 0 else zero
         loss = d.loss + cfg.gram_weight * g + cfg.koleo_weight * k
         new_center = d.new_center
         metrics = dict(loss_dino=d.loss, loss_gram=g, loss_koleo=k, loss_simclr=zero,
@@ -85,7 +133,8 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
         loss = loss + cfg.moe_aux_weight * moe_aux
         metrics["loss_moe_aux"] = moe_aux
     # Collapse telemetry: per-dim std of the CLS embedding over the batch.
-    metrics["embed_std"] = torch.mean(torch.std(s_feats[:, 0].float(), dim=0, correction=0))
+    cls = gather_rows(s_feats[:, 0].detach().float(), group)
+    metrics["embed_std"] = torch.mean(torch.std(cls, dim=0, correction=0))
     metrics["loss"] = loss
     return loss, new_center, {k: v.detach() for k, v in metrics.items()}
 
@@ -93,54 +142,90 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
 def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.Tensor,
                          spacing: Optional[torch.Tensor], cfg: TrainConfig,
                          jitter: Optional[torch.Generator] = None,
-                         mask_noise: Optional[torch.Tensor | torch.Generator] = None
+                         mask_noise: Optional[torch.Tensor | torch.Generator] = None,
+                         group: Group = None, rows: Optional[tuple[int, int, int]] = None
                          ) -> tuple[list[torch.Tensor], torch.Tensor, dict[str, torch.Tensor]]:
     """One micro-step: the gradients of :func:`micro_loss` with respect to
     the student's parameters (in ``named_parameters()`` order; zeros for a
-    parameter the loss does not reach), the new centre and the metrics."""
+    parameter the loss does not reach), the new centre and the metrics.
+    The gradients are this rank's: the step takes their data-group mean."""
     params = list(state.student.parameters())
     loss, new_center, metrics = micro_loss(state.student, state.teacher, center, batch, spacing,
-                                           cfg, jitter, mask_noise)
+                                           cfg, jitter, mask_noise, group, rows)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     return grads, new_center.detach(), metrics
 
 
+def _sp_replicated(student: Student) -> list[int]:
+    """Indices (in ``parameters()`` order) of the replicated parameters of
+    the sequence-parallel blocks (the norms, the row-parallel biases), whose
+    gradients come from token chunks."""
+    return [i for i, (name, p) in enumerate(student.named_parameters())
+            if name.startswith(("backbone.blocks.", "encoder.blocks.")) and tp_param_spec(name, p) is None]
+
+
 def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
-                     augment_fn: Optional[Callable] = None
+                     augment_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None
                      ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                    tuple[TrainState, dict[str, torch.Tensor]]]:
     """The optimizer step ``step_fn(state, pixels, spacing) -> (state,
     metrics)``, with pixels (accum, B, H, W, 3) uint16 and spacing
     (accum, B, 3) float32 (numpy arrays or tensors). It updates *state* in
     place and returns it; metrics are 0-d float32 tensors on the device.
-    Runs on the card unless *device* is ``"cpu"``.
+    Runs on the card unless *device* is ``"cpu"`` (the mesh's device by
+    default).
 
     *augment_fn(pixels, generator, aug_cfg) -> (n_views, B, S, S, 3)*
-    defaults to :func:`augment_views`."""
+    defaults to :func:`augment_views`; on a *mesh* it is also given
+    ``rows=(lo, hi, global_batch)``. On a *mesh*, *pixels* and *spacing*
+    are the rank's rows of the global batch (``parallel.mesh.batch_rows``)
+    and *state* is on the mesh (``create_train_state(..., mesh=)``)."""
     reject_unported(cfg)
-    dev = resolve_device(device)
+    check_mesh(cfg, mesh)
+    dev = resolve_device(mesh.device if device is None and mesh is not None else device)
     augment = augment_views if augment_fn is None else augment_fn
     aug_cfg = cfg.aug
+    group = None if mesh is None else mesh.data_group
+    tp = 1 if mesh is None else mesh.tp
+    sp = tp > 1 and cfg.model.sequence_parallel
 
     def step_fn(state: TrainState, pixels, spacing):
         pixels = torch.as_tensor(pixels, device=dev)
         spacing = torch.as_tensor(spacing, dtype=torch.float32, device=dev)
-        accum = pixels.shape[0]
+        accum, b = pixels.shape[:2]
+        rows = None if mesh is None else (mesh.dp_rank * b, (mesh.dp_rank + 1) * b, b * mesh.dp)
         state.student.train()
         grads, center, seq = None, state.center, []
         for a in range(accum):
-            views = augment(pixels[a], seeded_generator(cfg.train_seed, state.step, a, 0), aug_cfg)
+            gen = seeded_generator(cfg.train_seed, state.step, a, 0)
+            views = augment(pixels[a], gen, aug_cfg, **({} if rows is None else {"rows": rows}))
             batch = views.reshape((-1,) + tuple(views.shape[2:]))
             g, center, metrics = micro_loss_and_grads(
                 state, center, batch, spacing[a], cfg, seeded_generator(cfg.train_seed, state.step, a, 1),
-                seeded_generator(cfg.train_seed, state.step, a, 2))
+                seeded_generator(cfg.train_seed, state.step, a, 2), group, rows)
             grads = g if grads is None else torch._foreach_add(grads, g)
             seq.append(metrics)
         if accum > 1:
             grads = torch._foreach_div(grads, float(accum))
             metrics = {k: torch.stack([m[k] for m in seq]).mean() for k in seq[0]}
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if mesh is not None:
+            grads = all_reduce_bucket(grads, group, "mean")
+            if sp:
+                idx = _sp_replicated(state.student)
+                for i, g in zip(idx, all_reduce_bucket([grads[i] for i in idx], mesh.model_group)):
+                    grads[i] = g
+            keys = sorted(metrics)
+            means = all_reduce(torch.stack([metrics[k] for k in keys]), group, "mean")
+            metrics = dict(zip(keys, means.unbind(0)))
+        if tp > 1:  # a sharded tensor's squares summed over the model group, a replicated one once
+            sq = {True: [], False: []}
+            for (name, _), g in zip(state.student.named_parameters(), grads):
+                sq[tp_param_spec(name, g) is not None].append(g.float().pow(2).sum())
+            total = all_reduce(torch.stack(sq[True]).sum(), mesh.model_group) + torch.stack(sq[False]).sum()
+            metrics["grad_norm"] = torch.sqrt(total)
+        else:
+            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
         params = list(state.student.parameters())
         apply_gradients(cfg, state.optimizer, params, grads, state.step)

@@ -1,6 +1,5 @@
 """The training loop: batches -> train step -> metric sinks, checkpoints and
-anomaly checks. The port's ``dinox_tpu.train.trainer``, single-process, on
-one device.
+anomaly checks. The port's ``dinox_tpu.train.trainer``.
 
 It keeps the JAX loop's behaviour: periodic checkpoints with rotation; on a
 NaN/Inf loss an emergency checkpoint of the live state, then a raise;
@@ -10,6 +9,16 @@ wall time spent waiting for data. The step's metrics stay on the device and
 are drained to the host in one transfer per flush (``torch.stack``, then
 ``.cpu()``), on a step-count or wall-clock trigger, so the loop does not
 wait for the card every step.
+
+On a mesh of more than one process (``parallel.mesh``), as the JAX loop
+runs under ``jax.process_count() > 1``: only rank 0 writes ``config.json``,
+the metric sinks, stdout and ``checkpoints.json``; every rank takes part in
+the checkpoints (rank 0 writes them); the flushes are keyed to steps only
+(no wall-clock trigger), so every rank drains and checks the same steps;
+a barrier comes before the first step and before the final save; and the
+ranks agree at every step whether to stop (a SIGINT may reach them at
+different steps, and a rank that stopped alone would strand the others in
+a collective).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from dinox_torch.parallel.mesh import Mesh, any_rank, host_barrier
 from dinox_torch.train.anomaly import AnomalyDetector
 from dinox_torch.train.checkpoint import CheckpointManager, CheckpointWedgedError
 from dinox_torch.train.state import TrainConfig, TrainState
@@ -75,6 +85,7 @@ def train(
     on_step: Optional[Callable[[int, dict, TrainState], None]] = None,
     profile_steps: int = 0,
     profile_start: int = 2,
+    mesh: Optional[Mesh] = None,
 ) -> TrainState:
     """Run the loop until *max_steps* optimizer steps (or SIGINT).
 
@@ -85,14 +96,20 @@ def train(
     run under ``torch.profiler`` and its trace lands in ``run_dir/profile``.
     Writes ``config.json``, ``metrics.jsonl`` (with *log_jsonl*),
     checkpoints under ``ckpt/`` and ``checkpoints.json`` (the checkpoint
-    manager's ``stats``)."""
+    manager's ``stats``). On a *mesh*, every rank calls it with its own
+    batches and step."""
     device = torch.device(device)
+    main = mesh is None or mesh.rank == 0
+    multi = mesh is not None and mesh.multi
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.json").write_text(json.dumps(config_dict(cfg), indent=2, default=str))
+    if main:
+        (run_dir / "config.json").write_text(json.dumps(config_dict(cfg), indent=2, default=str))
 
-    ckpt = CheckpointManager(run_dir, keep_last=ckpt_keep_last, save_timeout_s=ckpt_timeout_s)
-    logger = MetricLogger(run_dir, jsonl=log_jsonl, tensorboard=tensorboard)
+    ckpt = CheckpointManager(run_dir, keep_last=ckpt_keep_last, save_timeout_s=ckpt_timeout_s,
+                             mesh=mesh)
+    logger = MetricLogger(run_dir, jsonl=log_jsonl and main, tensorboard=tensorboard and main,
+                          stdout=main)
     detector = AnomalyDetector(spike_floor=anomaly_spike_floor)
     stop = GracefulStop()
 
@@ -140,18 +157,22 @@ def train(
                     ckpt.emergency_save(step, state, f"{msg} (detected at step {s})")
                     last_saved = step  # the final save must not collide
                     raise FloatingPointError(f"training anomaly at step {s}: {msg}")
-                if severity == "warn":
+                if severity == "warn" and main:
                     print(f"anomaly_warn step={s} {msg}", flush=True)
         finally:
             # Cleared even on a raise: the final drain must not replay the
             # buffer (duplicate rows, a second emergency save).
             pending.clear()
 
-    profile_at = step + profile_start if profile_steps > 0 else -1
+    profile_at = step + profile_start if profile_steps > 0 and main else -1
     profiler = None
 
     try:
-        while step < max_steps and not stop.stop:
+        if multi:
+            host_barrier("dinox_torch:first_step")
+        while step < max_steps:
+            if any_rank(stop.stop) if multi else stop.stop:  # the ranks agree
+                break
             t_fetch = time.monotonic()
             batch = next(it)
             data_wait_since += time.monotonic() - t_fetch
@@ -186,8 +207,8 @@ def train(
             # Flush on the wall-clock cadence or when the buffer holds
             # flush_max_steps, which bounds how many steps a divergence can
             # run before the NaN check sees it.
-            if (due_ckpt or step == max_steps or stop.stop or len(pending) >= flush_max_steps
-                    or time.monotonic() - t_last >= flush_secs):
+            if (due_ckpt or step == max_steps or len(pending) >= flush_max_steps
+                    or (not multi and (stop.stop or time.monotonic() - t_last >= flush_secs))):
                 flush()
             if due_ckpt:
                 save()
@@ -198,11 +219,14 @@ def train(
             flush()  # drain buffered metrics (may raise on a late anomaly)
         finally:
             if last_saved != step:  # the final checkpoint, unless one covered it
+                if multi:
+                    host_barrier("dinox_torch:final_save")
                 save()
             ckpt.close()
             logger.close()
             stop.restore()
-            (run_dir / "checkpoints.json").write_text(json.dumps(ckpt.stats))
+            if main:
+                (run_dir / "checkpoints.json").write_text(json.dumps(ckpt.stats))
     if ckpt.wedged:
         raise CheckpointWedgedError(f"checkpoint save watchdog fired; state at step {step} NOT saved")
     return state

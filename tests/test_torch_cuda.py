@@ -21,7 +21,8 @@ the MAE encoder's and decoder's shapes; and module 12: a staged release
 loaded back (hub dir and backbone.pth) encoding through kernel 1 with the
 source model's bits, and detect_hardware on the card; and module 12b: one
 row of bench_batch_sweep and one tune_throughput cell at ViT-S on the card,
-each with exact launches of kernels 1, dq and dkv.
+each with exact launches of kernels 1, dq and dkv; and module 13a: kernel 1
+and the pair at the blocks a rank of the ViT-S bs96 mesh step runs.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -973,6 +974,33 @@ def test_packed_pair_at_the_mae_shapes(card, shape):
     torch.testing.assert_close(out[0].float(), packed_attention_reference(qkv, heads).float(),
                                atol=TOL, rtol=0)
     want = packed_attention_backward_reference(qkv, do, heads).float()
+    assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+@pytest.mark.parametrize("shape,tp", [((96, 261, 3 * 384, 6), 1), ((192, 261, 3 * 192, 6), 2)],
+                         ids=["dp2-rank", "tp2-rank"])
+def test_packed_pair_at_a_mesh_ranks_shapes(card, shape, tp):
+    """Kernel 1 and the dq/dkv pair at the blocks a rank of the ViT-S bs96
+    mesh step runs: its 2 x 48 view rows under dp 2, and all 2 x 96 rows
+    at 3 of the 6 heads under tp 2 ((192, 261, 576, 3), reached through
+    flash_attention_packed_sharded); within the JAX check's tolerances,
+    twice with equal bits."""
+    from dinox_torch.ops.flash_attention import flash_attention_packed_sharded
+    from dinox_torch.parallel import Mesh
+
+    b, n, three_dim, heads = shape
+    mesh = Mesh(tp, 0, 1, tp, None, None, torch.device("cuda"))
+    local = heads // tp
+    qkv = torch.randn((b, n, three_dim), generator=card, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, n, three_dim // 3), generator=card, device="cuda").to(torch.bfloat16)
+    before = flash_attention_packed.launches
+    out = [flash_attention_packed_sharded(qkv, heads, mesh) for _ in range(2)]
+    assert flash_attention_packed.launches - before == 2
+    grads = [packed_attention_backward(qkv, do, local) for _ in range(2)]
+    assert torch.equal(*out) and torch.equal(*grads)
+    torch.testing.assert_close(out[0].float(), packed_attention_reference(qkv, local).float(),
+                               atol=TOL, rtol=0)
+    want = packed_attention_backward_reference(qkv, do, local).float()
     assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 

@@ -3,7 +3,8 @@ the CPU: a run split by --stop-after and resumed matches the straight run
 (the twin of tests/test_stop_after.py), resume reconciles the model config
 as the JAX CLI does, an index-CSV run goes through the loader and the
 prefetcher, every flag of what is not ported yet raises naming its module,
-and without --device the CLI wants a card."""
+module 13a's flags on one process, and without --device the CLI wants a
+card."""
 
 import dataclasses
 import importlib.util
@@ -125,10 +126,10 @@ def test_data_arguments_refused(tmp_path, argv):
 
 
 UNPORTED = [
-    (["--model-parallel", "2"], "module 13"), (["--pipeline-parallel", "2"], "module 13"),
-    (["--expert-parallel", "2"], "module 13"), (["--sequence-parallel"], "module 13"),
-    (["--dist-coordinator", "localhost:1234"], "module 13"), (["--dist-processes", "2"], "module 13"),
-    (["--dist-process-id", "0"], "module 13"), (["--moe-experts", "4"], "module 11"),
+    (["--model-parallel", "2"], "module 13a"), (["--pipeline-parallel", "2"], "module 13b"),
+    (["--expert-parallel", "2"], "module 13b"), (["--sequence-parallel"], "module 13a"),
+    (["--dist-coordinator", "localhost:1234"], "module 13a"), (["--dist-processes", "2"], "module 13a"),
+    (["--dist-process-id", "0"], "module 13a"), (["--moe-experts", "4"], "module 11"),
     (["--loss-type", "mae"], "module 11"), (["--mu-dtype", "bfloat16"], "module 11"),
     (["--nu-dtype", "bfloat16"], "module 11"), (["--factored-nu"], "module 11"),
     (["--monitor-every", "5"], "module 11"),
@@ -137,11 +138,24 @@ UNPORTED = [
 
 @pytest.mark.parametrize("flags,module", UNPORTED, ids=[" ".join(f) for f, _ in UNPORTED])
 def test_unported_flags_raise(tmp_path, flags, module):
-    """Module 13's flags raise before anything is written. Module 11's are
-    ported now: one step runs and the flag reaches the run's config."""
+    """Module 13b's flags raise before anything is written. Module 13a's do
+    what they now do, in process and on one process, contacting no
+    coordinator: --model-parallel 2 is refused as make_mesh refuses it on
+    one device, --dist-processes 2 without a coordinator and a process id is
+    refused, and --sequence-parallel, --dist-coordinator and
+    --dist-process-id alone change nothing (one process initialises no
+    group, and the JAX package's _sp is a no-op off a model axis). Module
+    11's are ported: one step runs and the flag reaches the run's config."""
     argv = TINY + ["--synthetic", "--max-steps", "1", "--run-dir", str(tmp_path / "run"), *flags]
-    if module == "module 13":
+    if module == "module 13b":
         with pytest.raises(NotImplementedError, match=module):
+            pretrain.main(argv)
+        assert not (tmp_path / "run").exists()
+        return
+    refused = {"--model-parallel": "not divisible by model_parallel=2",
+               "--dist-processes": "--dist-coordinator"}
+    if flags[0] in refused:
+        with pytest.raises(ValueError, match=refused[flags[0]]):
             pretrain.main(argv)
         assert not (tmp_path / "run").exists()
         return
@@ -149,14 +163,19 @@ def test_unported_flags_raise(tmp_path, flags, module):
     cfg = json.loads((tmp_path / "run" / "config.json").read_text())
     field, value = {"--moe-experts": ("moe_experts", 4), "--loss-type": ("loss_type", "mae"),
                     "--mu-dtype": ("mu_dtype", "bfloat16"), "--nu-dtype": ("nu_dtype", "bfloat16"),
-                    "--factored-nu": ("factored_nu", True),
-                    "--monitor-every": (None, None)}[flags[0]]
-    if field == "moe_experts":
+                    "--factored-nu": ("factored_nu", True), "--monitor-every": (None, None),
+                    "--sequence-parallel": ("sequence_parallel", True),
+                    "--dist-coordinator": ("sequence_parallel", False),
+                    "--dist-process-id": ("sequence_parallel", False)}[flags[0]]
+    if field in ("moe_experts", "sequence_parallel"):
         assert cfg["model"][field] == value
     elif field is not None:
         assert cfg[field] == value
     else:  # the monitor is made at start-up; its first snapshot is at step 5
         assert (tmp_path / "run" / "monitor").is_dir()
+    if module == "module 13a":  # one process: no group, and one step trained
+        assert not torch.distributed.is_initialized()
+        assert sorted(_metrics(tmp_path / "run")) == [1]
 
 
 def test_cli_wants_a_card_unless_asked_for_the_cpu(tmp_path):
