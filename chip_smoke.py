@@ -5,9 +5,11 @@ inference-bench and LoRA fine-tuning CLIs, the CIFAR control, the
 DICOM/NIfTI preprocessing CLIs, module 11 (the optimizer-memory options at
 ViT-L/G, the Switch-MoE family, the MAE objective and in-loop monitoring),
 module 12 (release staging served back, data preparation into training,
-the integration canary), module 12b (the run and bench tooling) and module
+the integration canary), module 12b (the run and bench tooling), module
 13a (the data-, tensor- and sequence-parallel mesh: a world-1 NCCL group,
-then two gloo ranks sharing the card through the pretraining CLI), on one
+then two gloo ranks sharing the card through the pretraining CLI) and
+module 13b's first parts (expert parallelism, and MoE, LoRA and factored
+moments under tensor parallelism: gloo ranks sharing the card), on one
 CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -264,14 +266,33 @@ Run from the repository root:  python3 chip_smoke.py
    kernel 6 0). Gloo on CUDA tensors stages every collective on the host:
    its step times are not NCCL's.
 33. Tensor and sequence parallelism: two gloo ranks with --model-parallel 2
-   --sequence-parallel --fused-attn (6 steps of an 8-step schedule) against
-   the one-process --fused-attn run of 8 steps (kernel 6 there, kernel 1
+   --sequence-parallel --fused-attn (2 steps of a 4-step schedule) against
+   the one-process --fused-attn run of 4 steps (kernel 6 there, kernel 1
    and the pair at (192, 261, 576, 3) on the ranks, kernel 6 0), with 32's
-   gates; then one process resumes the tp run's checkpoint for steps 7-8,
-   within 1e-2 of the straight run's. Kernel 1 and the pair are held
+   gates (the final student compared at the ranks' last checkpoint step);
+   then one process resumes the tp run's checkpoint for steps 3-4, within
+   1e-2 of the straight run's. Kernel 1 and the pair are held
    against their plain versions at both ranks' shapes, (96, 261, 1152, 6)
    and (192, 261, 576, 3), and timed beside SDPA; the kernels line gives
    kernels 1, 2 (dq, dkv) and 6 dp_launches and tp_launches (per rank).
+34. Expert parallelism (module 13b): two gloo ranks with --moe-experts 4
+   --expert-parallel 2 (a (1, 1, 2) mesh; 6 steps of an 8-step schedule at
+   bs96) against the one-process run with the same flags, with 33's gates,
+   then one process resumes rank 0's checkpoint for steps 7-8 within 1e-2
+   of the straight run's.
+35. Tensor x expert parallelism: four gloo ranks at (1, 2, 2) with
+   --moe-experts 4 --model-parallel 2 --expert-parallel 2
+   --sequence-parallel --factored-nu at a global bs 32 (3 steps of a
+   5-step schedule; kernel 1 and the pair at (64, 261, 576, 3) on each
+   rank) against one process with the same flags, with 34's gates and
+   resume. Beside it, a LoRA r8 ViT-S backbone (bf16, dropout 0.1) runs
+   its eval forward and a training forward and backward at tp 2 on two
+   gloo ranks through kernel 1 and the pair, against one process: CLS
+   cosine >= 0.999, each factor's gradient at cosine >= 0.99, exact
+   launches per rank. Kernel 1 and the pair are held against their plain
+   versions at (64, 261, 576, 3) and (32, 261, 576, 3) and timed at the
+   first beside SDPA; the kernels line gives kernels 1, 2 (dq, dkv) and 6
+   ep_launches, tp_ep_launches and lora_tp_launches (per rank).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -358,7 +379,7 @@ from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views, eval_transform
 from dinox_torch.ops.augment_rgb import RgbAugConfig, augment_rgb_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
-from dinox_torch.parallel import init_distributed, make_mesh
+from dinox_torch.parallel import init_distributed, make_mesh, model_group_share, shard_model
 from dinox_torch.parallel.collectives import all_reduce_bucket
 from dinox_torch.train.finetune import (
     FinetuneConfig,
@@ -445,10 +466,17 @@ MODULE11_SHAPES = [MAE_ENC_SHAPE, MAE_DEC_SHAPE, VIT_L_SHAPE, VIT_G_TRAIN_SHAPE]
 # ViT-S bs96 mesh step runs, its 2 x 48 view rows at dp 2 and all 2 x 96
 # rows at 3 of the 6 heads at tp 2.
 MESH_DP_SHAPE, MESH_TP_SHAPE = (96, 261, 3 * 384, 6), (192, 261, 3 * 192, 3)
+# Module 13b (phases 34-35): the blocks a rank runs at tp 2 x ep 2 with the
+# global bs TPEP_BATCH (all 2 x 32 view rows at 3 of the 6 heads), and at tp
+# 2 in the LoRA backbone's forward and backward at bs LORA_TP_BATCH.
+TPEP_BATCH, LORA_TP_BATCH = 32, 32
+MESH_TPEP_SHAPE = (2 * TPEP_BATCH, 261, 3 * 192, 3)
+LORA_TP_SHAPE = (LORA_TP_BATCH, 261, 3 * 192, 3)
 CHECK_SHAPES = [(8, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16), (32, 261, 3 * 384, 6),
                 (4, 261, 3 * 512, 16), (192, 261, 3 * 384, 6), (512, 261, 3 * 384, 6),
                 (64, 261, 3 * 384, 6), (128, 261, 3 * 384, 6), (256, 261, 3 * 384, 6),
-                *CIFAR_FWD_SHAPES, *MODULE11_SHAPES, MESH_DP_SHAPE, MESH_TP_SHAPE]
+                *CIFAR_FWD_SHAPES, *MODULE11_SHAPES, MESH_DP_SHAPE, MESH_TP_SHAPE, MESH_TPEP_SHAPE,
+                LORA_TP_SHAPE]
 SERVING_SHAPE = (32, 261, 3 * 384, 6)
 # Backward gates: the JAX package's bwd tolerance (bench.py --check) and the
 # error relative to the largest gradient.
@@ -461,7 +489,7 @@ BWD_TOL, BWD_REL = 0.25, 2e-2
 BWD_SHAPES = [(8, 261, 3 * 384, 6), (192, 261, 3 * 384, 6), (2, 261, 3 * 1408, 16),
               (4, 261, 3 * 512, 16), (3, 37, 3 * 384, 6), (2, 1100, 3 * 384, 6),
               (32, 261, 3 * 384, 6), (64, 261, 3 * 384, 6), CIFAR_SHAPE, *MODULE11_SHAPES,
-              MESH_DP_SHAPE, MESH_TP_SHAPE]
+              MESH_DP_SHAPE, MESH_TP_SHAPE, MESH_TPEP_SHAPE, LORA_TP_SHAPE]
 # Module 11 (phases 21-24): bench_scale at ViT-L and ViT-G bs 32 under each
 # optimizer kind (warm-up and timed steps per kind); the MoE, MAE and monitor
 # runs of the pretraining CLI; the MoE sweep's points; the MAE decoder's depth.
@@ -494,6 +522,16 @@ RESUME_TOL = 1e-3  # relative, losses after the seam against the straight run
 # finishes from its checkpoint.
 MESH_STEPS, MESH_CLI_STEPS, MESH_LOSS_TOL, MESH_COS = 3, 6, 1e-2, 0.99
 MESH_ARGS = CLI_ARGS + ["--synthetic", "--ckpt-every", "3"]
+# Phase 33's tp + SP run takes fewer steps than 32b's dp run (of a schedule
+# of MESH_TP_STEPS + 2, a checkpoint each MESH_TP_STEPS): its gloo steps take
+# 10-18 s each on the card.
+MESH_TP_STEPS = 2
+# Module 13b (phases 34-35): the MoE runs' experts; the tp x ep run's steps
+# (of a schedule of TPEP_STEPS + 2, which one process finishes from rank 0's
+# checkpoint); the LoRA backbone's rank, and its gates (CLS cosine, each
+# factor gradient's cosine).
+MOE_ARGS = ["--moe-experts", "4"]
+TPEP_STEPS, LORA_TP_RANK, LORA_CLS_COS, LORA_GRAD_COS = 3, 8, 0.999, 0.99
 # The host loader's tree: 48 series x 32 slices at 512^2 from the v2 profiles,
 # three times the 512 slices the loader keeps decoded in memory.
 TREE_SERIES, TREE_SLICES, TREE_SIZE = 48, 32, 512
@@ -3094,7 +3132,7 @@ def nccl_step_worker(coord: str, out: Path) -> int:
 
 
 def rank_worker(coord: str, world: int, rank: int, out: Path, argv: list[str]) -> int:
-    """Phases 32b-33, in a child process: rank *rank* of a gloo group of
+    """Phases 32b-35, in a child process: rank *rank* of a gloo group of
     *world* on the card, running the pretraining CLI with *argv* and the
     dist flags; writes its launch counts to out/launches_rank{rank}.json."""
     init_distributed(coord, world, rank, backend="gloo")
@@ -3131,17 +3169,29 @@ def spawn_ranks(kind: str, world: int, out: Path, argv: list[str], timeout: floa
     return logs
 
 
-def final_student(run_dir: Path) -> dict[str, np.ndarray]:
-    ckpt = max((d for d in (run_dir / "ckpt").iterdir() if d.name.isdigit()), key=lambda d: int(d.name))
-    return {k: v for k, v in load_file(ckpt / "state.safetensors").items() if k.startswith("student.")}
+def last_step(run_dir: Path) -> int:
+    return max(int(d.name) for d in (run_dir / "ckpt").iterdir() if d.name.isdigit())
+
+
+def final_student(run_dir: Path, step: int | None = None) -> dict[str, np.ndarray]:
+    """The student of a run's checkpoint at *step* (its last by default)."""
+    step = last_step(run_dir) if step is None else step
+    state = load_file(run_dir / "ckpt" / str(step) / "state.safetensors")
+    return {k: v for k, v in state.items() if k.startswith("student.")}
+
+
+def cosine(x: np.ndarray, y: np.ndarray) -> float:
+    x, y = x.ravel().astype(np.float64), y.ravel().astype(np.float64)
+    return float(np.dot(x, y) / max(np.linalg.norm(x) * np.linalg.norm(y), 1e-30))
 
 
 def compare_mesh_run(label: str, ranks: Path, one: Path, steps: list[int], ranks_counts: list,
                      want: dict[str, int]) -> dict:
-    """The gates of phases 32b-33: the mesh run's losses at *steps* within
+    """The gates of phases 32b-35: the mesh run's losses at *steps* within
     MESH_LOSS_TOL of the one-process run's, its final student (every tensor,
-    as one vector) at cosine >= MESH_COS, and each rank's exact launches
-    *want*. The lowest cosine of a single tensor is printed beside it (a
+    as one vector) at cosine >= MESH_COS against the one-process run's
+    student at the same step, and each rank's exact launches *want*. The
+    lowest cosine of a single tensor is printed beside it (a
     tensor that starts at zero, such as the scale embedding's output layer,
     holds only Adam's updates, whose signs follow rounding where a gradient
     is near zero)."""
@@ -3149,14 +3199,11 @@ def compare_mesh_run(label: str, ranks: Path, one: Path, steps: list[int], ranks
     if sorted(got) != steps or not set(steps) <= set(ref):
         fail(f"{label}: logged steps {sorted(got)} against {sorted(ref)}")
     rel = {s: abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in steps}
-    a, b = final_student(ranks), final_student(one)
+    a, b = final_student(ranks), final_student(one, last_step(ranks))
     if {k: (v.shape, v.dtype) for k, v in a.items()} != {k: (v.shape, v.dtype) for k, v in b.items()}:
         fail(f"{label}: the mesh run's checkpoint is not a one-process checkpoint")
-    def cosine(x: np.ndarray, y: np.ndarray) -> float:
-        return float(np.dot(x, y) / max(np.linalg.norm(x) * np.linalg.norm(y), 1e-30))
-
     cos_all = cosine(*(np.concatenate([t[k].ravel() for k in sorted(a)]) for t in (a, b)))
-    cos = {k: cosine(a[k].ravel(), b[k].ravel()) for k in a if a[k].any() or b[k].any()}
+    cos = {k: cosine(a[k], b[k]) for k in a if a[k].any() or b[k].any()}
     worst = min(cos, key=cos.get)
     print(f"{label}: losses {[round(got[s]['loss'], 6) for s in steps]} against "
           f"{[round(ref[s]['loss'], 6) for s in steps]} (max rel {max(rel.values()):.3e}, tol "
@@ -3171,6 +3218,25 @@ def compare_mesh_run(label: str, ranks: Path, one: Path, steps: list[int], ranks
         if c != want_counts(**want):
             fail(f"{label}: rank {r} launched {c}, want {want}")
     return {"max_rel_loss": max(rel.values()), "cosine": cos_all, "min_tensor_cosine": cos[worst]}
+
+
+def resume_in_one_process(label: str, argv: list[str], ranks: Path, one: Path, out: Path, seam: int,
+                          total: int) -> float:
+    """One process resumes the mesh run's step-*seam* checkpoint (rank 0's)
+    with *argv* to step *total*; its losses after the seam within
+    MESH_LOSS_TOL of the straight one-process run's. Returns the largest
+    relative difference."""
+    run_cli(argv + ["--resume", str(ranks), "--run-dir", str(out)], f"{label} resume")
+    got, ref = read_metrics(out), read_metrics(one)
+    rel = {s: abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"]) for s in range(seam + 1, total + 1)}
+    print(f"{label}: one process resumed the mesh run's step-{seam} checkpoint: losses "
+          f"{[round(got[s]['loss'], 6) for s in rel]} against the straight run's "
+          f"{[round(ref[s]['loss'], 6) for s in rel]} (max rel {max(rel.values()):.3e}, tol "
+          f"{MESH_LOSS_TOL})", flush=True)
+    if sorted(got) != sorted(rel) or max(rel.values()) > MESH_LOSS_TOL:
+        fail(f"{label}: the one-process resume of the mesh run's checkpoint disagrees with the "
+             "straight run")
+    return max(rel.values())
 
 
 def rank_step_s(log: str) -> float:
@@ -3230,8 +3296,9 @@ def mesh_path(tmp: Path) -> dict:
 
     tp_dir, one_tp, resumed = tmp / "tp", tmp / "one_tp", tmp / "tp_resumed"
     tp_dir.mkdir()
+    per_step = MESH_TP_STEPS
     total = per_step + 2
-    tp_args = MESH_ARGS + ["--max-steps", str(total), "--fused-attn"]
+    tp_args = MESH_ARGS + ["--max-steps", str(total), "--fused-attn", "--ckpt-every", str(per_step)]
     logs = spawn_ranks("rank", 2, tp_dir, tp_args + ["--stop-after", str(per_step), "--model-parallel", "2",
                                                      "--sequence-parallel", "--run-dir", str(tp_dir)])
     tp_counts = [json.loads((tp_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
@@ -3246,22 +3313,160 @@ def mesh_path(tmp: Path) -> dict:
                           dict(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
                                packed_attention_bwd_dkv=12 * per_step))
     tp["step_ms"], tp["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
-    run_cli(tp_args + ["--resume", str(tp_dir), "--run-dir", str(resumed)], "phase 33 resume")
-    got, ref = read_metrics(resumed), read_metrics(one_tp)
-    rel = {s: abs(got[s]["loss"] - ref[s]["loss"]) / abs(ref[s]["loss"])
-           for s in range(per_step + 1, total + 1)}
+    rel = resume_in_one_process("phase 33", tp_args, tp_dir, one_tp, resumed, per_step, total)
     print(f"phase 33 step: {tp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors, not NCCL's "
-          f"time), {tp['one_step_ms']:.1f} ms in one process with kernel 6; one process resumed the tp "
-          f"run's step-{per_step} checkpoint: losses {[round(got[s]['loss'], 6) for s in rel]} against "
-          f"the straight run's {[round(ref[s]['loss'], 6) for s in rel]} (max rel {max(rel.values()):.3e}, "
-          f"tol {MESH_LOSS_TOL})", flush=True)
-    if sorted(got) != sorted(rel) or max(rel.values()) > MESH_LOSS_TOL:
-        fail("the one-process resume of the tp run's checkpoint disagrees with the straight run")
-    tp["resume_max_rel_loss"] = max(rel.values())
+          f"time), {tp['one_step_ms']:.1f} ms in one process with kernel 6", flush=True)
+    tp["resume_max_rel_loss"] = rel
     wall = time.perf_counter() - t0
     print(f"phases 32-33 (module 13a): {wall:.1f} s (32a {t32a:.1f}, 32b {t32b:.1f}, 33 "
           f"{wall - t32a - t32b:.1f})", flush=True)
     return {"nccl": nccl, "dp": dp, "tp": tp, "dp_counts": dp_counts[0], "tp_counts": tp_counts[0]}
+
+
+def with_batch(argv: list[str], batch: int) -> list[str]:
+    """*argv* with its --batch-size set to *batch*."""
+    at = argv.index("--batch-size") + 1
+    return argv[:at] + [str(batch)] + argv[at + 1:]
+
+
+def lora_tp_step(mesh=None) -> dict[str, np.ndarray]:
+    """A LoRA ViT-S backbone (rank LORA_TP_RANK on qkv/proj/fc1/fc2, dropout
+    0.1, bf16, kernel 1) from SEED, with live adapters: the eval forward's
+    CLS on a seeded batch of LORA_TP_BATCH, then a training forward and
+    backward of the tokens against seeded weights, giving each LoRA
+    factor's gradient. On a *mesh* the backbone is cut by its model group
+    (``parallel.shard_model``) and the factors' gradient shares are summed
+    over it (``parallel.model_group_share``)."""
+    cfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True, lora_rank=LORA_TP_RANK, lora_alpha=16.0,
+                                             lora_dropout=0.1)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    model = PatchViT(cfg, generator=gen)
+    with torch.no_grad():  # fresh lora_B is zero: make the adapters live
+        for m in model.lora_layers():
+            m.lora_B.weight.normal_(0.0, 0.02, generator=gen)
+    model.to("cuda")
+    if mesh is not None:
+        shard_model(model, mesh)
+    x = torch.randn((LORA_TP_BATCH, cfg.img_size, cfg.img_size, 3), generator=gen).cuda()
+    sp = (torch.rand((LORA_TP_BATCH, 3), generator=gen) * 2.5 + 0.5).cuda()
+    w = torch.randn((LORA_TP_BATCH, 1 + cfg.n_patches + cfg.num_registers, cfg.dim), generator=gen).cuda()
+    with torch.no_grad():
+        cls = model.eval()(x, sp)[:, 0].float().cpu().numpy()
+    model.train().set_lora_generator(torch.Generator("cuda").manual_seed(SEED + 8))
+    loss = (model(x, sp) * w).sum()
+    named = [(n, p) for n, p in model.named_parameters() if ".lora_" in n]
+    grads = list(torch.autograd.grad(loss, [p for _, p in named]))
+    if mesh is not None:
+        shares = [i for i, (n, p) in enumerate(named) if model_group_share(n, p, cfg.sequence_parallel)]
+        for i, g in zip(shares, all_reduce_bucket([grads[i] for i in shares], mesh.model_group)):
+            grads[i] = g
+    torch.cuda.synchronize()
+    return {"cls": cls, **{n: g.float().cpu().numpy() for (n, _), g in zip(named, grads)}}
+
+
+def lora_tp_worker(coord: str, world: int, rank: int, out: Path) -> int:
+    """Beside phase 35, in a child process: rank *rank* of a gloo group of
+    *world* on the card, the model group of the LoRA backbone's step
+    (:func:`lora_tp_step`); rank 0 writes out/lora_tp.npz, every rank its
+    launch counts."""
+    init_distributed(coord, world, rank, backend="gloo")
+    try:
+        mesh = make_mesh(model_parallel=world)
+        reset_launch_counts()
+        res = lora_tp_step(mesh)
+        (out / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
+        if rank == 0:
+            np.savez(out / "lora_tp.npz", **res)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def expert_path(tmp: Path) -> dict:
+    """Phases 34-35 (module 13b's first parts): the two-rank expert-parallel
+    CLI run and the four-rank tensor x expert run against one process each,
+    both resumed in one process from rank 0's checkpoint, and the LoRA
+    backbone at tp 2. Returns the readings and a rank's launches."""
+    t0 = time.perf_counter()
+    per_rank = MESH_CLI_STEPS
+    total = per_rank + 2
+    ep_args = MESH_ARGS + MOE_ARGS + ["--max-steps", str(total)]
+    ep_dir, one_ep = tmp / "ep", tmp / "one_ep"
+    ep_dir.mkdir()
+    logs = spawn_ranks("rank", 2, ep_dir, ep_args + ["--stop-after", str(per_rank), "--expert-parallel", "2",
+                                                     "--run-dir", str(ep_dir)])
+    ep_counts = [json.loads((ep_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
+    reset_launch_counts()
+    _, one_log = run_cli(ep_args + ["--run-dir", str(one_ep)], "phase 34 one-process run")
+    one_counts = launch_counts()
+    if one_counts != want_counts(packed_attention=24 * total, packed_attention_bwd_dq=12 * total,
+                                 packed_attention_bwd_dkv=12 * total):
+        fail(f"the one-process run of phase 34 launched {one_counts}")
+    ep = compare_mesh_run("phase 34, ep 2 with 4 experts (two gloo ranks on one card) vs one process",
+                          ep_dir, one_ep, list(range(1, per_rank + 1)), ep_counts,
+                          dict(packed_attention=24 * per_rank, packed_attention_bwd_dq=12 * per_rank,
+                               packed_attention_bwd_dkv=12 * per_rank))
+    ep["step_ms"], ep["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
+    ep["resume_max_rel_loss"] = resume_in_one_process("phase 34", ep_args, ep_dir, one_ep, tmp / "ep_resumed",
+                                                      per_rank, total)
+    t34 = time.perf_counter() - t0
+    print(f"phase 34 step: {ep['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors, not NCCL's "
+          f"time), {ep['one_step_ms']:.1f} ms in one process; {t34:.1f} s", flush=True)
+
+    total = TPEP_STEPS + 2
+    tpep_args = with_batch(MESH_ARGS, TPEP_BATCH) + MOE_ARGS + [
+        "--sequence-parallel", "--factored-nu", "--max-steps", str(total)]
+    tpep_dir, one_tpep = tmp / "tpep", tmp / "one_tpep"
+    tpep_dir.mkdir()
+    logs = spawn_ranks("rank", 4, tpep_dir, tpep_args + [
+        "--stop-after", str(TPEP_STEPS), "--model-parallel", "2", "--expert-parallel", "2",
+        "--run-dir", str(tpep_dir)])
+    tpep_counts = [json.loads((tpep_dir / f"launches_rank{r}.json").read_text()) for r in range(4)]
+    reset_launch_counts()
+    _, one_log = run_cli(tpep_args + ["--run-dir", str(one_tpep)], "phase 35 one-process run")
+    one_counts = launch_counts()
+    if one_counts != want_counts(packed_attention=24 * total, packed_attention_bwd_dq=12 * total,
+                                 packed_attention_bwd_dkv=12 * total):
+        fail(f"the one-process run of phase 35 launched {one_counts}")
+    tpep = compare_mesh_run(
+        f"phase 35, tp 2 x ep 2 + sequence parallel, factored moments, bs{TPEP_BATCH} (four gloo ranks) vs "
+        "one process", tpep_dir, one_tpep, list(range(1, TPEP_STEPS + 1)), tpep_counts,
+        dict(packed_attention=24 * TPEP_STEPS, packed_attention_bwd_dq=12 * TPEP_STEPS,
+             packed_attention_bwd_dkv=12 * TPEP_STEPS))
+    tpep["step_ms"], tpep["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
+    tpep["resume_max_rel_loss"] = resume_in_one_process("phase 35", tpep_args, tpep_dir, one_tpep,
+                                                        tmp / "tpep_resumed", TPEP_STEPS, total)
+    t35 = time.perf_counter() - t0 - t34
+    print(f"phase 35 step: {tpep['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors), "
+          f"{tpep['one_step_ms']:.1f} ms in one process; {t35:.1f} s", flush=True)
+
+    lora_dir = tmp / "lora_tp"
+    lora_dir.mkdir()
+    spawn_ranks("lora-tp", 2, lora_dir, [])
+    lora_counts = [json.loads((lora_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
+    got = dict(np.load(lora_dir / "lora_tp.npz"))
+    reset_launch_counts()
+    want = lora_tp_step()
+    cls_cos = min(cosine(a, b) for a, b in zip(got["cls"], want["cls"]))
+    grad_cos = {k: cosine(got[k], want[k]) for k in want if k != "cls"}
+    worst = min(grad_cos, key=grad_cos.get)
+    lora_want = dict(packed_attention=24, packed_attention_bwd_dq=12, packed_attention_bwd_dkv=12)
+    tlora = time.perf_counter() - t0 - t34 - t35
+    print(f"phase 35, LoRA r{LORA_TP_RANK} ViT-S bs{LORA_TP_BATCH} at tp 2 (two gloo ranks) vs one process: "
+          f"CLS cosine min {cls_cos:.6f} (tol {LORA_CLS_COS}); factor gradients' cosine lowest {grad_cos[worst]:.6f} "
+          f"({worst}, of {len(grad_cos)}; tol {LORA_GRAD_COS}); launches per rank "
+          f"{[{k: v for k, v in c.items() if v} for c in lora_counts]} (want {lora_want}); {tlora:.1f} s",
+          flush=True)
+    if cls_cos < LORA_CLS_COS or grad_cos[worst] < LORA_GRAD_COS or len(grad_cos) != 4 * 12 * 2:
+        fail("the LoRA backbone at tp 2 disagrees with one process")
+    for r, c in enumerate(lora_counts):
+        if c != want_counts(**lora_want):
+            fail(f"LoRA at tp 2: rank {r} launched {c}, want {lora_want}")
+    wall = time.perf_counter() - t0
+    print(f"phases 34-35 (module 13b): {wall:.1f} s (34 {t34:.1f}, 35 {t35:.1f}, LoRA at tp 2 {tlora:.1f})",
+          flush=True)
+    return {"ep": ep, "tp_ep": tpep, "lora_tp": {"cls_cosine_min": cls_cos, "grad_cosine_min": grad_cos[worst]},
+            "ep_counts": ep_counts[0], "tp_ep_counts": tpep_counts[0], "lora_tp_counts": lora_counts[0]}
 
 
 def main() -> int:
@@ -3459,8 +3664,18 @@ def main() -> int:
         "nccl": {k: mesh_res["nccl"][k] for k in ("metrics_bit_equal", "state_bit_equal", "step_s",
                                                     "bucket_mb", "allreduce_ms")}}}), flush=True)
 
+    # -- module 13b's first parts: the expert axis, MoE, LoRA and factored
+    # moments under tp, then kernel 1 and the pair at a tp x ep rank's block --
+    with tempfile.TemporaryDirectory() as tmp:
+        ep_res = expert_path(Path(tmp))
+    tpep_fwd = time_forward(peaks, MESH_TPEP_SHAPE, "a tp-2 x ep-2 rank of the bs32 step", SEED + 17)
+    tpep_bwd = time_backward(peaks, MESH_TPEP_SHAPE)
+    print(json.dumps({"module13b": {k: ep_res[k] for k in ("ep", "tp_ep", "lora_tp")}}), flush=True)
+
     def mesh_launches(name: str) -> dict[str, int]:
-        return {"dp_launches": mesh_res["dp_counts"][name], "tp_launches": mesh_res["tp_counts"][name]}
+        return {"dp_launches": mesh_res["dp_counts"][name], "tp_launches": mesh_res["tp_counts"][name],
+                "ep_launches": ep_res["ep_counts"][name], "tp_ep_launches": ep_res["tp_ep_counts"][name],
+                "lora_tp_launches": ep_res["lora_tp_counts"][name]}
 
     def later_paths(name: str) -> dict[str, int]:
         return {"eval_launches": eval_counts[name],
@@ -3519,6 +3734,7 @@ def main() -> int:
         **mesh_launches("packed_attention"),
         "mesh_dp": fwd_timing(dp_fwd),
         "mesh_tp": fwd_timing(tp_fwd),
+        "mesh_tp_ep": fwd_timing(tpep_fwd),
     }]
     # The pair replaces kernel 2 (_packed_bwd_kernel) and kernel 3 (the split
     # dq/dkv kernels); the dq entry carries the pair's time and bound.
@@ -3553,6 +3769,7 @@ def main() -> int:
             kernels[-1]["vit_g"] = pair_timing(g_bwd, VIT_G_TRAIN_SHAPE)
             kernels[-1]["mesh_dp"] = pair_timing(dp_bwd, MESH_DP_SHAPE)
             kernels[-1]["mesh_tp"] = pair_timing(tp_bwd, MESH_TP_SHAPE)
+            kernels[-1]["mesh_tp_ep"] = pair_timing(tpep_bwd, MESH_TPEP_SHAPE)
     fused_entries = (
         ("fused_attn_block", "fused_attn_block.cu", "fused_attn_block.py:46", fused_attn_err,
          fused["attn_training"], fused_counts["fused_attn_block"]),
@@ -3641,12 +3858,14 @@ def main() -> int:
 
 
 def worker(argv: list[str]) -> int:
-    """A child of phases 32-33: ``--worker KIND COORD WORLD RANK OUT [ARGV...]``."""
+    """A child of phases 32-35: ``--worker KIND COORD WORLD RANK OUT [ARGV...]``."""
     kind, coord, world, rank, out = argv[0], argv[1], int(argv[2]), int(argv[3]), Path(argv[4])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     if kind == "nccl-step":
         return nccl_step_worker(coord, out)
+    if kind == "lora-tp":
+        return lora_tp_worker(coord, world, rank, out)
     return rank_worker(coord, world, rank, out, argv[5:])
 
 

@@ -2,7 +2,22 @@
 ``dinox_tpu.models.moe.MoeMlp``. Under data parallelism the load-balance
 loss's two means are the global batch's (the token fractions all-reduced,
 the mean probabilities through ``parallel.collectives.mean_over_group``);
-routing is per image and needs nothing more. The expert axis is module 13b.
+routing is per image and needs nothing more.
+
+Expert parallelism (:meth:`MoeMlp.set_mesh`, ep > 1), written out where the
+JAX package leaves it to GSPMD's constraints: a rank holds the expert
+stacks' rows ``[ep_rank * E / ep, (ep_rank + 1) * E / ep)``
+(``parallel.mesh.ep_param_spec``). The router, the routing, the capacity,
+the dispatch and the load-balance loss are computed whole on every rank of
+the expert group; the rank runs its experts' slots of the dispatch buffer
+and combines them into a partial output, and the partials are summed over
+the expert group (``reduce_from_group``: all-reduce forward, identity
+backward). A token has one expert, so one partial holds its output and the
+others zeros: the sum is exact. The input that enters the dispatch and the
+gate that enters the combine pass ``copy_to_group`` (identity forward,
+all-reduce backward), so their gradients are the sums of the ranks'
+shares; the router's own input does not, so the load-balance loss's
+gradient, the same on every rank, is counted once.
 
 Dense dispatch, as in the JAX package: routing is one-hot einsums onto a
 fixed-capacity (B, E, C, D) buffer, grouped per image. The router is a
@@ -24,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dinox_torch.parallel.collectives import all_reduce, mean_over_group
+from dinox_torch.parallel.collectives import all_reduce, copy_to_group, mean_over_group, reduce_from_group
 
 
 class MoeMlp(nn.Module):
@@ -43,7 +58,18 @@ class MoeMlp(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(n_experts, 1, hidden))
         self.w2 = nn.Parameter(torch.empty(n_experts, hidden, dim))
         self.b2 = nn.Parameter(torch.zeros(n_experts, 1, dim))
-        self.data_group = None  # set by models.vit.set_mesh: the aux's batch means go global
+        self.data_group = None  # set by set_mesh: the aux's batch means go global
+        self.expert_group, self.ep, self.ep_rank = None, 1, 0
+
+    def set_mesh(self, mesh) -> None:
+        """Run on *mesh* (``parallel.mesh.Mesh``): the load-balance means over
+        its data group and, with ep > 1, this rank's experts of the expert
+        stacks that ``parallel.mesh.shard_model`` cuts. Raises when the
+        experts do not divide by the expert axis."""
+        if self.n_experts % mesh.ep:
+            raise ValueError(f"moe_experts={self.n_experts} not divisible by expert axis size {mesh.ep}")
+        self.data_group = mesh.data_group
+        self.expert_group, self.ep, self.ep_rank = mesh.expert_group, mesh.ep, mesh.ep_rank
 
     def capacity(self, n_tokens: int) -> int:
         return max(1, int(n_tokens / self.n_experts * self.capacity_factor))
@@ -72,9 +98,14 @@ class MoeMlp(nn.Module):
         dt = x.dtype
         probs, expert, dispatch, aux = self.route(x)
         gate = torch.gather(probs, -1, expert[..., None])[..., 0]
+        if self.ep > 1:  # this rank's experts' slots; x and the gate enter them as shares
+            local = self.n_experts // self.ep
+            dispatch = dispatch[:, :, self.ep_rank * local:(self.ep_rank + 1) * local]
+            x, gate = copy_to_group(x, self.expert_group), copy_to_group(gate, self.expert_group)
         xe = torch.einsum("btec,btd->becd", dispatch.to(dt), x)
         h = torch.einsum("becd,edh->bech", xe, self.w1.to(dt)) + self.b1.to(dt)
         h = F.gelu(h, approximate=self.approximate)
         ye = torch.einsum("bech,ehd->becd", h, self.w2.to(dt)) + self.b2.to(dt)
         combine = (dispatch * gate[..., None, None]).to(dt)
-        return torch.einsum("btec,becd->btd", combine, ye), aux
+        y = torch.einsum("btec,becd->btd", combine, ye)
+        return (reduce_from_group(y, self.expert_group) if self.ep > 1 else y), aux

@@ -62,7 +62,12 @@ rounding points:
   float32 over the model group, rounded once, then the bias added once),
   and ``sequence_parallel`` runs the norms and the residual stream on the
   rank's token chunk (the reference's ``_sp``), the tokens padded to a
-  multiple of tp. The fused MLP, MoE and LoRA do not take tp > 1.
+  multiple of tp. An MoE layer is replicated over the model group and runs
+  whole on every rank (under sequence parallelism on the gathered
+  sequence), its experts cut over the expert axis (``models.moe``); LoRA
+  factors are replicated, a column layer's ``lora_B`` read at the rank's
+  output columns and a row layer's ``lora_A`` at its input columns, inside
+  the layer's float32 sum. The fused MLP does not take tp > 1.
 
 :class:`DinoStudentTeacher` adds the DINO head on CLS; its ``state_dict()``
 keys are ``backbone.*``, ``head.0.*`` and ``head.2.*``, the keys of
@@ -97,6 +102,7 @@ from dinox_torch.ops.flash_attention import (
 from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
 from dinox_torch.ops.fused_mlp import fused_mlp_block
+from dinox_torch.parallel.mesh import cut
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 ATTN_IMPLS = ("pallas", "xla")
@@ -146,18 +152,34 @@ class Linear(nn.Module):
             self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
-        if not self.lora_rank:
-            return y
-        h = x
-        if self.training and self.lora_dropout > 0.0:
-            if self.generator is None:
-                raise ValueError("LoRA dropout in training mode needs a generator "
-                                 "(PatchViT.set_lora_generator)")
-            keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.lora_dropout
-            h = torch.where(keep, x / (1.0 - self.lora_dropout), torch.zeros_like(x))
-        t = torch.matmul(h, self.lora_A.weight.to(x.dtype).t()) * self.lora_scale
-        return y + torch.matmul(t, self.lora_B.weight.to(x.dtype).t())
+        y = self.base(x)
+        return y + self.lora(x) if self.lora_rank else y
+
+    def base(self, x: torch.Tensor) -> torch.Tensor:
+        """``x @ W^T`` rounded to x's dtype, then ``+ b`` in that dtype."""
+        return torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+
+    def lora(self, x: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The LoRA term of *x*; with *b*, rows of ``lora_B`` (a column-parallel
+        shard's), the term of those output columns."""
+        t = torch.matmul(self.dropout(x), self.lora_A.weight.to(x.dtype).t()) * self.lora_scale
+        return torch.matmul(t, (self.lora_B.weight if b is None else b).to(x.dtype).t())
+
+    def dropout(self, x: torch.Tensor, width: Optional[int] = None, start: int = 0) -> torch.Tensor:
+        """The LoRA input: *x* under dropout in training mode. With *width*,
+        *x* holds the columns ``[start, start + x.shape[-1])`` of an input
+        *width* wide (a row-parallel layer's slice): the mask is drawn at the
+        full width, as one card draws it, and those columns kept."""
+        if not (self.training and self.lora_dropout > 0.0):
+            return x
+        if self.generator is None:
+            raise ValueError("LoRA dropout in training mode needs a generator "
+                             "(PatchViT.set_lora_generator)")
+        shape = x.shape if width is None else (*x.shape[:-1], width)
+        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.lora_dropout
+        if width is not None:
+            keep = keep[..., start:start + x.shape[-1]]
+        return torch.where(keep, x / (1.0 - self.lora_dropout), torch.zeros_like(x))
 
 
 class LayerNorm(nn.Module):
@@ -273,42 +295,61 @@ class TransformerBlock(nn.Module):
     def set_mesh(self, mesh) -> None:
         """Run on *mesh* (``parallel.mesh.Mesh``): the fused attention
         half-block gives way to kernel 1 and the pair on a mesh of more than
-        one rank, an MoE block's load-balance means go over the data group,
-        and with tp > 1 the block runs tensor-parallel on the shards
-        ``parallel.mesh.shard_state`` cuts. Raises for what tp > 1 does not
+        one rank, an MoE block's load-balance means go over the data group
+        and its experts over the expert group (``MoeMlp.set_mesh``), and with
+        tp > 1 the block runs tensor-parallel on the shards
+        ``parallel.mesh.shard_model`` cuts. Raises for what tp > 1 does not
         take."""
         if mesh.tp > 1:
-            if hasattr(self, "moe"):
-                raise NotImplementedError(f"MoE under model_parallel={mesh.tp} is not ported to "
-                                          "dinox_torch yet: module 13b")
-            if self.cfg.lora_rank:
-                raise NotImplementedError(f"LoRA under model_parallel={mesh.tp} is not ported to "
-                                          "dinox_torch yet: module 13b")
             if self.fused_mlp:
                 raise ValueError("the fused MLP half-block computes the whole MLP on one card; it "
                                  f"does not take model_parallel={mesh.tp}")
             if self.cfg.heads % mesh.tp:
                 raise ValueError(f"heads={self.cfg.heads} not divisible by model axis size {mesh.tp}")
         if hasattr(self, "moe"):
-            self.moe.data_group = mesh.data_group
+            self.moe.set_mesh(mesh)
         self.mesh = mesh
         self.fused_attn = takes_fused_attn(self.cfg, mesh)
+
+    def _column_parallel(self, lin: Linear, h: torch.Tensor, groups: int) -> torch.Tensor:
+        """A column-parallel layer on the whole input *h*: this rank's output
+        columns (its weight and bias shards; with LoRA, the rows of the
+        replicated ``lora_B`` for those columns, cut as the weight is)."""
+        if not lin.lora_rank:
+            return lin(h)
+        b = cut(lin.lora_B.weight, (0, groups), self.mesh.tp, self.mesh.tp_rank)
+        return lin.base(h) + lin.lora(h, b)
 
     def _row_parallel(self, lin: Linear, y: torch.Tensor, n_pad: Optional[int]) -> torch.Tensor:
         """A row-parallel layer: this rank's partial product in float32,
         summed over the model group (all-reduce; under sequence parallelism
         a reduce-scatter of the tokens padded to *n_pad*), rounded once to
         the compute dtype, then the bias added once, as the one-card
-        ``Linear`` rounds the whole product."""
-        g = self.mesh.model_group
-        part = torch.matmul(y.float(), lin.weight.to(y.dtype).float().t())
+        ``Linear`` rounds the whole product. With LoRA the rank's input
+        columns also give ``dropout(y) @ A^T`` over its columns of the
+        replicated ``lora_A``; it rides in the same float32 sum, is rounded
+        once, scaled, and goes through the whole ``lora_B``: the rounding
+        points of ``Linear.forward``."""
+        g, tp, dt = self.mesh.model_group, self.mesh.tp, y.dtype
+        part = torch.matmul(y.float(), lin.weight.to(dt).float().t())
+        if lin.lora_rank:
+            width, lo = y.shape[-1], self.mesh.tp_rank * y.shape[-1]
+            a = lin.lora_A.weight[:, lo:lo + width]
+            t = torch.matmul(lin.dropout(y, width * tp, lo).float(), a.to(dt).float().t())
+            part = torch.cat([part, t], dim=-1)
         if n_pad is None:
             part = reduce_from_group(part, g)
         else:
             part = scatter_rows(F.pad(part, (0, 0, 0, n_pad - part.shape[1])), g, 1)
-        return part.to(y.dtype) + lin.bias.to(y.dtype)
+        out = lin.weight.shape[0]
+        z = part[..., :out].to(dt) + lin.bias.to(dt)
+        if lin.lora_rank:
+            t = part[..., out:].to(dt) * lin.lora_scale
+            z = z + torch.matmul(t, lin.lora_B.weight.to(dt).t())
+        return z
 
-    def _forward_tp(self, x: torch.Tensor, n_tokens: Optional[int]) -> torch.Tensor:
+    def _forward_tp(self, x: torch.Tensor, n_tokens: Optional[int]
+                    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The block on the model group (Megatron): qkv and fc1 hold this
         rank's output columns, proj and fc2 its input rows. Without
         sequence parallelism *x* is the whole residual stream on every rank;
@@ -317,30 +358,45 @@ class TransformerBlock(nn.Module):
         (*n_tokens*, the true sequence length) *x* is this rank's token
         chunk of the padded sequence: the norms and the residual run on the
         chunk, the column layers' input is all-gathered (reduce-scattered in
-        the backward) and the row layers' output reduce-scattered."""
+        the backward) and cut to the true tokens, and the row layers' output
+        reduce-scattered. An MoE layer is replicated over the model group
+        and runs whole on every rank, on the whole sequence (routing and
+        capacity are per image): under sequence parallelism its input is
+        gathered (the backward keeps the rank's chunk of the equal
+        gradients) and its output cut back to the chunk (the backward
+        gathers the chunks' gradients), so every rank computes the same
+        MoE gradients, the load-balance loss's among them, once."""
         g, tp = self.mesh.model_group, self.mesh.tp
         sp = n_tokens is not None
         n_pad = x.shape[1] * tp if sp else None
-        a, m = self.attn, self.mlp
+        a = self.attn
         h = self.norm1(x)
         h = gather_rows(h, g, 1)[:, :n_tokens] if sp else copy_to_group(h, g)
-        qkv = a.qkv(h)
+        qkv = self._column_parallel(a.qkv, h, 3)
         if a.attn_impl == "pallas":
             out = flash_attention_packed_sharded(qkv, a.heads, self.mesh)
         else:
             out = a.attend(qkv, a.heads // tp)
         x = x + self._row_parallel(a.proj, out, n_pad)
         h = self.norm2(x)
-        h = gather_rows(h, g, 1) if sp else copy_to_group(h, g)
-        h = F.gelu(m.fc1(h), approximate=m.approximate)
-        return x + self._row_parallel(m.fc2, h, n_pad)
+        if hasattr(self, "moe"):
+            if sp:
+                h = gather_from_group(h, g, 1)[:, :n_tokens]
+            y, aux = self.moe(h)
+            if sp:
+                y = split_to_group(F.pad(y, (0, 0, 0, n_pad - n_tokens)), g, 1)
+            return x + y, aux
+        m = self.mlp
+        h = gather_rows(h, g, 1)[:, :n_tokens] if sp else copy_to_group(h, g)
+        h = F.gelu(self._column_parallel(m.fc1, h, 1), approximate=m.approximate)
+        return x + self._row_parallel(m.fc2, h, n_pad), None
 
     def forward_with_aux(self, x: torch.Tensor, n_tokens: Optional[int] = None
                          ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(output, the MoE load-balance loss or None for a dense block).
         *n_tokens* is set under sequence parallelism (:meth:`_forward_tp`)."""
         if self.mesh is not None and self.mesh.tp > 1:
-            return self._forward_tp(x, n_tokens), None
+            return self._forward_tp(x, n_tokens)
         if self.fused_attn:
             a = self.attn
             x = fused_attn_block(x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
@@ -547,7 +603,7 @@ def set_mesh(model: nn.Module, mesh) -> None:
     """Put *model* (a PatchViT, a DinoStudentTeacher or a MaeModel) on
     *mesh*: every PatchViT (for sequence parallelism) and every block
     (:meth:`TransformerBlock.set_mesh`). The parameters are cut by
-    ``parallel.mesh.shard_state``, which calls this."""
+    ``parallel.mesh.shard_model``, which calls this."""
     for m in model.modules():
         if isinstance(m, PatchViT):
             m.mesh = mesh

@@ -19,15 +19,22 @@ Examples:
     python -m dinox_torch.pretrain --config vit-small --synthetic --batch-size 96 \
         --run-dir /tmp/dp --dist-coordinator host0:29500 --dist-processes 2 --dist-process-id 0
 
-Multi-process runs (module 13a): ``--dist-processes W`` processes, one card
-each (``cuda:{rank % device_count}``), on the ``(data, model)`` mesh of
-``parallel.mesh`` with ``--model-parallel`` ranks to a model group and
-``--sequence-parallel``. They train what one process trains on the same
-global batch: each rank takes its data rank's rows, and rank 0 writes the
-run dir (config, metrics, checkpoints that one process resumes). A process
-group already set up by the caller with the same world size and rank is
-used as it is. Pipeline and expert parallelism raise NotImplementedError
-naming module 13b.
+    # Four processes, tensor 2 x expert 2 (an MoE every second block, its 4
+    # experts cut 2 to a rank); one such command per process id 0-3
+    python -m dinox_torch.pretrain --config vit-small --synthetic --batch-size 32 \
+        --moe-experts 4 --model-parallel 2 --expert-parallel 2 --sequence-parallel \
+        --run-dir /tmp/tpep --dist-coordinator host0:29500 --dist-processes 4 --dist-process-id 0
+
+Multi-process runs (module 13): ``--dist-processes W`` processes, one card
+each (``cuda:{rank % device_count}``), on the ``(data, model[, expert])``
+mesh of ``parallel.mesh`` with ``--model-parallel`` ranks to a model group,
+``--sequence-parallel``, and ``--expert-parallel`` ranks to an expert group
+(``--moe-experts`` must be a multiple of it: exit 2 otherwise). They train
+what one process trains on the same global batch: each rank takes its data
+rank's rows, and rank 0 writes the run dir (config, metrics, checkpoints in
+the one-process layout, which one process resumes). A process group
+already set up by the caller with the same world size and rank is used as
+it is. Pipeline parallelism raises NotImplementedError naming module 13b.
 """
 
 from __future__ import annotations
@@ -93,7 +100,9 @@ def parse_args(argv=None):
                    help="expert capacity factor (tokens/expert multiplier)")
     p.add_argument("--moe-aux-weight", type=float, default=0.01,
                    help="weight of the Switch load-balance loss")
-    p.add_argument("--expert-parallel", type=int, default=1, help="above 1 not ported: module 13b")
+    p.add_argument("--expert-parallel", type=int, default=1,
+                   help="ranks of an expert group (the MoE experts cut over them); divides "
+                        "--dist-processes / --model-parallel, and --moe-experts must be a multiple")
     p.add_argument("--sequence-parallel", action="store_true",
                    help="with --model-parallel > 1: norms and the residual stream on token chunks")
     # training
@@ -375,9 +384,10 @@ def monitor_hook(args, cfg: TrainConfig, loader, writes: bool = True):
 def main(argv=None) -> int:
     t_main = time.monotonic()
     args = parse_args(argv)
-    if args.expert_parallel > 1:
-        raise NotImplementedError(f"--expert-parallel {args.expert_parallel} is not ported to "
-                                  "dinox_torch yet: module 13b")
+    if args.expert_parallel > 1 and (args.moe_experts < 1 or args.moe_experts % args.expert_parallel):
+        print(f"error: --expert-parallel {args.expert_parallel} needs --moe-experts divisible by it, "
+              f"got {args.moe_experts}", file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     started = join_processes(args, device)
     try:
@@ -389,8 +399,9 @@ def main(argv=None) -> int:
 
 def run(args, device: torch.device, t_main: float, argv) -> int:
     mesh = None
-    if args.dist_processes > 1 or args.model_parallel > 1:
-        mesh = make_mesh(model_parallel=args.model_parallel, device=device)
+    if args.dist_processes > 1 or args.model_parallel > 1 or args.expert_parallel > 1:
+        mesh = make_mesh(model_parallel=args.model_parallel, expert_parallel=args.expert_parallel,
+                         device=device)
         device = mesh.device
     main_rank = mesh is None or mesh.rank == 0
     say = print if main_rank else (lambda *a, **k: None)
@@ -455,7 +466,7 @@ def run(args, device: torch.device, t_main: float, argv) -> int:
     say(f"device={device} ({name})", flush=True)
     if mesh is not None:
         say(f"mesh: {mesh.world} processes on {mesh.hosts} host(s), data {mesh.dp} x model "
-            f"{mesh.tp}, sequence_parallel={mcfg.sequence_parallel}, "
+            f"{mesh.tp} x expert {mesh.ep}, sequence_parallel={mcfg.sequence_parallel}, "
             f"{args.batch_size // mesh.dp} rows a data rank", flush=True)
     say(f"config={args.config} params~{mcfg.params_millions:.1f}M "
         f"eff_batch={cfg.effective_batch_size} scale_aware={mcfg.scale_aware}", flush=True)

@@ -33,7 +33,12 @@ ViT-G), which is the memory these optimizers exist to save.
   ``exp_avg_sq_c`` are JAX's ``r`` and ``c`` as they are, in JAX's shapes
   (for a dense weight the port's rows are JAX's columns: its ``r`` has the
   length of the *input* axis). A 1-D parameter keeps a full float32
-  ``exp_avg_sq``.
+  ``exp_avg_sq``. On a mesh that cuts a parameter (``parallel.mesh``;
+  :meth:`AdamFactored.cut_axis`), each statistic taken over the cut axis is
+  the mean of the ranks' means over the group that holds the shards (the
+  whole axis's mean, as GSPMD computes it in the JAX package): ``r`` when
+  the cut axis is the layout's last, ``c`` and ``mean(r)`` when it is the
+  one before; a cut of a leading axis (an expert stack's) needs nothing.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from dinox_torch.parallel.collectives import all_reduce
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -135,7 +142,14 @@ class AdamFactored(_DecoupledAdam):
                  layouts: Optional[dict[torch.Tensor, Sequence[int]]] = None):
         self.mu_dtype = mu_dtype
         self.layouts = {id(p): tuple(perm) for p, perm in (layouts or {}).items()}
+        self.cuts: dict[int, tuple[int, object]] = {}  # id(p) -> (layout axis from the end, group)
         super().__init__(params, lr, betas, eps, weight_decay)
+
+    def cut_axis(self, p: torch.Tensor, axis: int, group) -> None:
+        """Note that *p* holds this rank's shard of its axis *axis* (the
+        port's axis), cut over the process group *group*."""
+        perm = self._perm(p)
+        self.cuts[id(p)] = (perm.index(axis) - len(perm), group)
 
     def state_dtype(self, key: str) -> Optional[torch.dtype]:
         return self.mu_dtype if key == "exp_avg" else torch.float32
@@ -163,9 +177,18 @@ class AdamFactored(_DecoupledAdam):
         else:
             perm = self._perm(p)
             g2 = g2.permute(perm)
-            r = state["exp_avg_sq_r"].mul_(b2).add_(g2.mean(dim=-1), alpha=1.0 - b2)
-            c = state["exp_avg_sq_c"].mul_(b2).add_(g2.mean(dim=-2), alpha=1.0 - b2)
-            denom = r.mean(dim=-1, keepdim=True).clamp_min(1e-30)
+            at, shards = self.cuts.get(id(p), (None, None))
+            rows, cols = g2.mean(dim=-1), g2.mean(dim=-2)
+            if at == -1:
+                rows = all_reduce(rows, shards, "mean")
+            elif at == -2:
+                cols = all_reduce(cols, shards, "mean")
+            r = state["exp_avg_sq_r"].mul_(b2).add_(rows, alpha=1.0 - b2)
+            c = state["exp_avg_sq_c"].mul_(b2).add_(cols, alpha=1.0 - b2)
+            denom = r.mean(dim=-1, keepdim=True)
+            if at == -2:
+                denom = all_reduce(denom, shards, "mean")
+            denom = denom.clamp_min(1e-30)
             nu_f = (r[..., :, None] * (c / denom)[..., None, :]).permute(tuple(np.argsort(perm)))
         step = mu_f / _bias_correction(b1, count)
         step.div_((nu_f / _bias_correction(b2, count)).sqrt_().add_(group["eps"]))

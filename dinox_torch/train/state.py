@@ -104,16 +104,6 @@ def reject_unported(cfg: TrainConfig) -> None:
             raise ValueError(f"{field} must be one of {sorted(DTYPES)}, got {getattr(cfg, field)!r}")
 
 
-def check_mesh(cfg: TrainConfig, mesh: Optional[Mesh]) -> None:
-    """Raise for what the mesh does not take: factored Adam moments under
-    tp > 1 (their row and column statistics are over the whole parameter;
-    reducing them across the model group is module 13b). The model's own
-    limits are checked by ``models.vit.set_mesh``."""
-    if mesh is not None and mesh.tp > 1 and cfg.factored_nu:
-        raise NotImplementedError(f"factored_nu under model_parallel={mesh.tp} is not ported to "
-                                  "dinox_torch yet: module 13b")
-
-
 Student = DinoStudentTeacher | MaeModel
 
 
@@ -191,7 +181,6 @@ def create_train_state(cfg: TrainConfig, seed: int = 0,
     full state is built from the seed on every rank, as one process builds
     it, then cut to this rank's shard (``parallel.mesh.shard_state``)."""
     reject_unported(cfg)
-    check_mesh(cfg, mesh)
     dev = _device(device, mesh)
     student = _student(cfg, dev, seed)
     state = TrainState(step=0, student=student, teacher=_teacher_of(student),
@@ -227,7 +216,6 @@ def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
     ``mu_dtype``/``nu_dtype``. On a *mesh* the state is then cut to this
     rank's shard, as :func:`create_train_state` cuts it."""
     reject_unported(cfg)
-    check_mesh(cfg, mesh)
     dev = _device(device, mesh)
     student = _student(cfg, dev)
     student.load_state_dict(_tensors(cfg, tree["student"], dev), strict=True)

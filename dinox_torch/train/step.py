@@ -22,18 +22,22 @@ for the augmentation, another for the spacing jitter and a third for the
 MAE mask noise.
 
 On a mesh (``parallel.mesh.Mesh``; the counterpart of the JAX step's
-``mesh``) each rank takes its rows ``[lo, hi)`` of the global batch, and
-every draw is made at the global shape and the rank's rows taken (rows
-``[lo:hi]`` and ``[B+lo:B+hi]`` of the ``[view1; view2]`` layout), so the
-ranks see the views of the one-process run. The losses reduce over the data
-group (``train.losses``); after accumulation one bucketed all-reduce gives
-the data group's mean gradient; under sequence parallelism the replicated
-block parameters whose gradient comes from token chunks (the norms, the
-row-parallel biases) are also summed over the model group. ``grad_norm``
-is the full parameters' (a sharded tensor's squares summed over the model
-group, a replicated one counted once), and the metrics are the data group's
-means, so every rank holds the same values. With one rank the step is the
-one without a mesh, to the bit.
+``mesh``) each rank takes its rows ``[lo, hi)`` of the global batch (cut
+over the data axis only), and every draw is made at the global shape and
+the rank's rows taken (rows ``[lo:hi]`` and ``[B+lo:B+hi]`` of the
+``[view1; view2]`` layout), so the ranks see the views of the one-process
+run. The losses reduce over the data group (``train.losses``); after
+accumulation one bucketed all-reduce gives the data group's mean gradient
+(an expert stack's over the ranks that hold the same experts); with tp > 1
+the replicated parameters of which each rank holds a share of the gradient
+(``parallel.mesh.model_group_share``: under sequence parallelism those of
+the blocks but the MoE's, which runs whole on every rank; the LoRA factors
+of the cut layers) are also summed over the model group. ``grad_norm`` is
+the full parameters' (a tensor-parallel shard's squares summed over the
+model group, an expert shard's over the expert group, a replicated
+tensor's counted once), and the metrics are the data group's means, so
+every rank holds the same values. With one rank the step is the one
+without a mesh, to the bit.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from dinox_torch.models.mae import mae_loss
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.parallel.collectives import Group, all_reduce, all_reduce_bucket, gather_rows
-from dinox_torch.parallel.mesh import Mesh, tp_param_spec
+from dinox_torch.parallel.mesh import EXPERT_AXIS, MODEL_AXIS, Mesh, model_group_share, param_cut
 from dinox_torch.train.losses import dino_loss, gram_anchoring_loss, koleo_loss, simclr_loss
 from dinox_torch.train.schedule import get_lr_tensor
 from dinox_torch.train.state import (
@@ -54,7 +58,6 @@ from dinox_torch.train.state import (
     TrainConfig,
     TrainState,
     apply_gradients,
-    check_mesh,
     reject_unported,
 )
 from dinox_torch.utils.platform import resolve_device
@@ -157,12 +160,25 @@ def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.T
     return grads, new_center.detach(), metrics
 
 
-def _sp_replicated(student: Student) -> list[int]:
-    """Indices (in ``parameters()`` order) of the replicated parameters of
-    the sequence-parallel blocks (the norms, the row-parallel biases), whose
-    gradients come from token chunks."""
+def _model_group_shares(student: Student, sequence_parallel: bool) -> list[int]:
+    """Indices (in ``parameters()`` order) of the replicated parameters whose
+    gradient each rank of a model group holds a share of."""
     return [i for i, (name, p) in enumerate(student.named_parameters())
-            if name.startswith(("backbone.blocks.", "encoder.blocks.")) and tp_param_spec(name, p) is None]
+            if model_group_share(name, p, sequence_parallel)]
+
+
+def _grad_norm(student: Student, grads: list[torch.Tensor], mesh: Optional[Mesh]) -> torch.Tensor:
+    """The norm of the full parameters' gradient: a shard's squares summed
+    over the group that cuts it, a replicated tensor's counted once."""
+    if mesh is None or (mesh.tp == 1 and mesh.ep == 1):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    sq = {MODEL_AXIS: [], EXPERT_AXIS: [], None: []}
+    for (name, _), g in zip(student.named_parameters(), grads):
+        c = param_cut(name, g, mesh)
+        sq[None if c is None else c[1]].append(g.float().pow(2).sum())
+    sharded = sum(all_reduce(torch.stack(sq[axis]).sum(), mesh.axis(axis)[2])
+                  for axis in (MODEL_AXIS, EXPERT_AXIS) if sq[axis])
+    return torch.sqrt(sharded + torch.stack(sq[None]).sum())
 
 
 def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
@@ -182,13 +198,10 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
     are the rank's rows of the global batch (``parallel.mesh.batch_rows``)
     and *state* is on the mesh (``create_train_state(..., mesh=)``)."""
     reject_unported(cfg)
-    check_mesh(cfg, mesh)
     dev = resolve_device(mesh.device if device is None and mesh is not None else device)
     augment = augment_views if augment_fn is None else augment_fn
     aug_cfg = cfg.aug
     group = None if mesh is None else mesh.data_group
-    tp = 1 if mesh is None else mesh.tp
-    sp = tp > 1 and cfg.model.sequence_parallel
 
     def step_fn(state: TrainState, pixels, spacing):
         pixels = torch.as_tensor(pixels, device=dev)
@@ -211,21 +224,14 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
             metrics = {k: torch.stack([m[k] for m in seq]).mean() for k in seq[0]}
         if mesh is not None:
             grads = all_reduce_bucket(grads, group, "mean")
-            if sp:
-                idx = _sp_replicated(state.student)
-                for i, g in zip(idx, all_reduce_bucket([grads[i] for i in idx], mesh.model_group)):
+            shares = _model_group_shares(state.student, cfg.model.sequence_parallel) if mesh.tp > 1 else []
+            if shares:
+                for i, g in zip(shares, all_reduce_bucket([grads[i] for i in shares], mesh.model_group)):
                     grads[i] = g
             keys = sorted(metrics)
             means = all_reduce(torch.stack([metrics[k] for k in keys]), group, "mean")
             metrics = dict(zip(keys, means.unbind(0)))
-        if tp > 1:  # a sharded tensor's squares summed over the model group, a replicated one once
-            sq = {True: [], False: []}
-            for (name, _), g in zip(state.student.named_parameters(), grads):
-                sq[tp_param_spec(name, g) is not None].append(g.float().pow(2).sum())
-            total = all_reduce(torch.stack(sq[True]).sum(), mesh.model_group) + torch.stack(sq[False]).sum()
-            metrics["grad_norm"] = torch.sqrt(total)
-        else:
-            metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        metrics["grad_norm"] = _grad_norm(state.student, grads, mesh)
 
         params = list(state.student.parameters())
         apply_gradients(cfg, state.optimizer, params, grads, state.step)

@@ -22,7 +22,9 @@ loaded back (hub dir and backbone.pth) encoding through kernel 1 with the
 source model's bits, and detect_hardware on the card; and module 12b: one
 row of bench_batch_sweep and one tune_throughput cell at ViT-S on the card,
 each with exact launches of kernels 1, dq and dkv; and module 13a: kernel 1
-and the pair at the blocks a rank of the ViT-S bs96 mesh step runs.
+and the pair at the blocks a rank of the ViT-S bs96 mesh step runs; and
+module 13b: the pair at a tp 2 x ep 2 rank's block, and a world-1 NCCL
+MoE mesh step bit-equal to the step without a mesh.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -977,14 +979,16 @@ def test_packed_pair_at_the_mae_shapes(card, shape):
     assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
 
 
-@pytest.mark.parametrize("shape,tp", [((96, 261, 3 * 384, 6), 1), ((192, 261, 3 * 192, 6), 2)],
-                         ids=["dp2-rank", "tp2-rank"])
+@pytest.mark.parametrize("shape,tp", [((96, 261, 3 * 384, 6), 1), ((192, 261, 3 * 192, 6), 2),
+                                      ((64, 261, 3 * 192, 6), 2)],
+                         ids=["dp2-rank", "tp2-rank", "tp2-ep2-rank"])
 def test_packed_pair_at_a_mesh_ranks_shapes(card, shape, tp):
-    """Kernel 1 and the dq/dkv pair at the blocks a rank of the ViT-S bs96
-    mesh step runs: its 2 x 48 view rows under dp 2, and all 2 x 96 rows
-    at 3 of the 6 heads under tp 2 ((192, 261, 576, 3), reached through
-    flash_attention_packed_sharded); within the JAX check's tolerances,
-    twice with equal bits."""
+    """Kernel 1 and the dq/dkv pair at the blocks a rank of the ViT-S mesh
+    step runs: its 2 x 48 view rows under dp 2 at bs96, all 2 x 96 rows at
+    3 of the 6 heads under tp 2 ((192, 261, 576, 3), reached through
+    flash_attention_packed_sharded), and all 2 x 32 rows at 3 heads under
+    tp 2 x ep 2 at bs 32 ((64, 261, 576, 3)); within the JAX check's
+    tolerances, twice with equal bits."""
     from dinox_torch.ops.flash_attention import flash_attention_packed_sharded
     from dinox_torch.parallel import Mesh
 
@@ -1002,6 +1006,51 @@ def test_packed_pair_at_a_mesh_ranks_shapes(card, shape, tp):
                                atol=TOL, rtol=0)
     want = packed_attention_backward_reference(qkv, do, local).float()
     assert (grads[0].float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def test_world_one_nccl_moe_mesh_step_is_the_plain_step(card):
+    """A world-1 NCCL group's mesh with expert_parallel=1 and MoE at tp 1
+    (ViT-S scale-aware, 4 experts, bs 16): two steps bit-equal to the step
+    without a mesh, every metric and every state tensor, with the same
+    launches of kernels 1, dq and dkv: at world 1 the expert axis and its
+    group cost nothing."""
+    import itertools
+    import socket
+
+    import torch.distributed as dist
+
+    from dinox_torch.parallel import make_mesh
+    from dinox_torch.pretrain import DeviceSyntheticBatches
+    from dinox_torch.train.checkpoint import state_tensors
+    from dinox_torch.train.state import TrainConfig, create_train_state
+    from dinox_torch.train.step import build_train_step
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(model_parallel=1, expert_parallel=1)
+        assert (mesh.dp, mesh.tp, mesh.ep, mesh.expert_group) == (1, 1, 1, None)
+        mcfg = MODEL_CONFIGS["vit-small"].replace(scale_aware=True, moe_experts=4)
+        cfg = TrainConfig(model=mcfg, batch_size=16, warmup_steps=2, max_steps=10, koleo_weight=0.1)
+        plain, meshed = create_train_state(cfg, 0, "cuda"), create_train_state(cfg, 0, mesh=mesh)
+        fns = build_train_step(cfg, "cuda"), build_train_step(cfg, mesh=mesh)
+        counters = (flash_attention_packed, packed_attention_bwd_dq, packed_attention_bwd_dkv)
+        batches = DeviceSyntheticBatches(2, 16, 1, 512, 0, n_datasets=5, device="cuda")
+        for batch in itertools.islice(iter(batches), 2):
+            got, launched = [], []
+            for state, fn in ((plain, fns[0]), (meshed, fns[1])):
+                before = [c.launches for c in counters]
+                got.append(fn(state, batch.pixels, batch.spacing)[1])
+                launched.append([c.launches - b for c, b in zip(counters, before)])
+            assert sorted(got[0]) == sorted(got[1]) and "loss_moe_aux" in got[0]
+            assert all(torch.equal(got[0][k], got[1][k]) for k in got[0])
+            assert launched[0] == launched[1] == [2 * mcfg.depth, mcfg.depth, mcfg.depth]
+        a, b = state_tensors(plain), state_tensors(meshed)
+        assert a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_staged_release_cls_through_kernel_1_is_bit_equal(card, tmp_path):

@@ -127,7 +127,7 @@ def test_data_arguments_refused(tmp_path, argv):
 
 UNPORTED = [
     (["--model-parallel", "2"], "module 13a"), (["--pipeline-parallel", "2"], "module 13b"),
-    (["--expert-parallel", "2"], "module 13b"), (["--sequence-parallel"], "module 13a"),
+    (["--expert-parallel", "2"], "exit 2"), (["--sequence-parallel"], "module 13a"),
     (["--dist-coordinator", "localhost:1234"], "module 13a"), (["--dist-processes", "2"], "module 13a"),
     (["--dist-process-id", "0"], "module 13a"), (["--moe-experts", "4"], "module 11"),
     (["--loss-type", "mae"], "module 11"), (["--mu-dtype", "bfloat16"], "module 11"),
@@ -138,7 +138,10 @@ UNPORTED = [
 
 @pytest.mark.parametrize("flags,module", UNPORTED, ids=[" ".join(f) for f, _ in UNPORTED])
 def test_unported_flags_raise(tmp_path, flags, module):
-    """Module 13b's flags raise before anything is written. Module 13a's do
+    """--pipeline-parallel (module 13b's last part) raises before anything
+    is written; --expert-parallel 2 without --moe-experts divisible by it
+    exits 2 before anything is written (the reference's help text asks for
+    it; its mesh fails only later). Module 13a's do
     what they now do, in process and on one process, contacting no
     coordinator: --model-parallel 2 is refused as make_mesh refuses it on
     one device, --dist-processes 2 without a coordinator and a process id is
@@ -147,6 +150,10 @@ def test_unported_flags_raise(tmp_path, flags, module):
     group, and the JAX package's _sp is a no-op off a model axis). Module
     11's are ported: one step runs and the flag reaches the run's config."""
     argv = TINY + ["--synthetic", "--max-steps", "1", "--run-dir", str(tmp_path / "run"), *flags]
+    if module == "exit 2":
+        assert pretrain.main(argv) == 2
+        assert not (tmp_path / "run").exists()
+        return
     if module == "module 13b":
         with pytest.raises(NotImplementedError, match=module):
             pretrain.main(argv)
