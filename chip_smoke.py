@@ -8,9 +8,9 @@ module 12 (release staging served back, data preparation into training,
 the integration canary), module 12b (the run and bench tooling), module
 13a (the data-, tensor- and sequence-parallel mesh: a world-1 NCCL group,
 then two gloo ranks sharing the card through the pretraining CLI) and
-module 13b's first parts (expert parallelism, and MoE, LoRA and factored
-moments under tensor parallelism: gloo ranks sharing the card), on one
-CUDA card.
+module 13b (expert parallelism, MoE, LoRA and factored moments under
+tensor parallelism, and pipeline parallelism: gloo ranks sharing the card),
+on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -242,8 +242,8 @@ Run from the repository root:  python3 chip_smoke.py
 30. The sweeps: bench_batch_sweep at bs 64/96/128/192/256 with --profile
    (exact launches of kernels 1, dq and dkv; every row ok; the per-slice
    device µs by kind printed; bs 96 within 5% of step 8's rate);
-   tune_throughput --synthetic --batch-sizes 64 640 64 --steps 100 (the
-   middle cell "oom", the second bs-64 cell ok, within 10% of the first
+   tune_throughput --synthetic --batch-sizes 512 640 512 --steps 20 (the
+   middle cell "oom", the second bs-512 cell ok, within 10% of the first
    and at its peak memory); its index-CSV grid over 15's PNG tree at bs
    64, workers {4, 8} x prefetch {2, 4} (exact launches; each cell's bound
    and data_wait_frac), then --loader-only over the same grid.
@@ -259,31 +259,34 @@ Run from the repository root:  python3 chip_smoke.py
    the same staged batches: every metric and every state tensor bit-equal;
    the NCCL all-reduce of the gradient bucket timed. (b) Two child
    processes share gloo and the card as ranks 0 and 1 of the CLI
-   (--synthetic --batch-size 96, 48 rows a rank, 6 steps, --ckpt-every 3)
+   (--synthetic --batch-size 96, 48 rows a rank, 2 steps, --ckpt-every 2)
    against the same argv in this process without the dist flags: per-step
    losses within 1e-2 relative, the final checkpoint's student at cosine
    >= 0.99 (all its tensors as one vector), exact launches per rank (kernel 1 24, dq and dkv 12 a step,
    kernel 6 0). Gloo on CUDA tensors stages every collective on the host:
    its step times are not NCCL's.
 33. Tensor and sequence parallelism: two gloo ranks with --model-parallel 2
-   --sequence-parallel --fused-attn (2 steps of a 4-step schedule) against
+   --sequence-parallel --fused-attn (1 step of a 3-step schedule) against
    the one-process --fused-attn run of 4 steps (kernel 6 there, kernel 1
    and the pair at (192, 261, 576, 3) on the ranks, kernel 6 0), with 32's
    gates (the final student compared at the ranks' last checkpoint step);
-   then one process resumes the tp run's checkpoint for steps 3-4, within
+   then one process resumes the tp run's checkpoint for steps 2-3, within
    1e-2 of the straight run's. Kernel 1 and the pair are held
    against their plain versions at both ranks' shapes, (96, 261, 1152, 6)
    and (192, 261, 576, 3), and timed beside SDPA; the kernels line gives
    kernels 1, 2 (dq, dkv) and 6 dp_launches and tp_launches (per rank).
+   The two-rank runs of phases 32b-36 (dp, tp + SP, ep, the LoRA
+   backbone at tp 2, pp) share one spawn of two children, one run after
+   the other in one gloo group (one process start-up for all five).
 34. Expert parallelism (module 13b): two gloo ranks with --moe-experts 4
-   --expert-parallel 2 (a (1, 1, 2) mesh; 6 steps of an 8-step schedule at
+   --expert-parallel 2 (a (1, 1, 2) mesh; 2 steps of a 4-step schedule at
    bs96) against the one-process run with the same flags, with 33's gates,
-   then one process resumes rank 0's checkpoint for steps 7-8 within 1e-2
+   then one process resumes rank 0's checkpoint for steps 3-4 within 1e-2
    of the straight run's.
 35. Tensor x expert parallelism: four gloo ranks at (1, 2, 2) with
    --moe-experts 4 --model-parallel 2 --expert-parallel 2
-   --sequence-parallel --factored-nu at a global bs 32 (3 steps of a
-   5-step schedule; kernel 1 and the pair at (64, 261, 576, 3) on each
+   --sequence-parallel --factored-nu at a global bs 32 (2 steps of a
+   4-step schedule; kernel 1 and the pair at (64, 261, 576, 3) on each
    rank) against one process with the same flags, with 34's gates and
    resume. Beside it, a LoRA r8 ViT-S backbone (bf16, dropout 0.1) runs
    its eval forward and a training forward and backward at tp 2 on two
@@ -293,6 +296,19 @@ Run from the repository root:  python3 chip_smoke.py
    versions at (64, 261, 576, 3) and (32, 261, 576, 3) and timed at the
    first beside SDPA; the kernels line gives kernels 1, 2 (dq, dkv) and 6
    ep_launches, tp_ep_launches and lora_tp_launches (per rank).
+36. Pipeline parallelism (module 13b-3): two gloo ranks, one stage of 6
+   ViT-S blocks each, run the CLI with --pipeline-parallel 2
+   --pp-microbatches 4 --attn-impl xla at bs96 (4 steps of a 6-step
+   schedule, a checkpoint at step 4) against the one-process --attn-impl
+   xla run of 6 steps, with 32's gates (losses within 1e-2, the student at
+   cosine >= 0.99 at step 4); then one process resumes rank 0's checkpoint
+   for steps 5-6 within 1e-2 of the straight run's. The stage blocks run the
+   reference's plain attention, so kernels 1, 2 (dq, dkv) and 6 launch 0
+   times on every rank (pp_launches on the kernels line). Prints each
+   rank's parameter and state bytes (its stage cut of the checkpoint) and
+   max_memory_allocated beside the one process's (each rank's parameter
+   bytes must be below the one process's), rank 0's ms a step and the
+   phase's seconds.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
@@ -379,7 +395,8 @@ from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops.augment import augment_views, eval_transform
 from dinox_torch.ops.augment_rgb import RgbAugConfig, augment_rgb_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
-from dinox_torch.parallel import init_distributed, make_mesh, model_group_share, shard_model
+from dinox_torch.parallel import Mesh, init_distributed, make_mesh, model_group_share, shard_model
+from dinox_torch.parallel.pipeline import stage_tensors
 from dinox_torch.parallel.collectives import all_reduce_bucket
 from dinox_torch.train.finetune import (
     FinetuneConfig,
@@ -520,18 +537,29 @@ RESUME_TOL = 1e-3  # relative, losses after the seam against the straight run
 # micro-steps', and the final student's cosine); the tp run stops at
 # MESH_CLI_STEPS of a schedule of MESH_CLI_STEPS + 2, which one process
 # finishes from its checkpoint.
-MESH_STEPS, MESH_CLI_STEPS, MESH_LOSS_TOL, MESH_COS = 3, 6, 1e-2, 0.99
+MESH_STEPS, MESH_CLI_STEPS, MESH_LOSS_TOL, MESH_COS = 3, 2, 1e-2, 0.99
 MESH_ARGS = CLI_ARGS + ["--synthetic", "--ckpt-every", "3"]
 # Phase 33's tp + SP run takes fewer steps than 32b's dp run (of a schedule
 # of MESH_TP_STEPS + 2, a checkpoint each MESH_TP_STEPS): its gloo steps take
-# 10-18 s each on the card.
-MESH_TP_STEPS = 2
+# 10-22 s each on the card. (Phases 32b and 34 were cut from 6 to 2 steps,
+# 33 from 2 to 1 and 35 from 3 to 2 to make room for phase 36.)
+MESH_TP_STEPS = 1
 # Module 13b (phases 34-35): the MoE runs' experts; the tp x ep run's steps
 # (of a schedule of TPEP_STEPS + 2, which one process finishes from rank 0's
 # checkpoint); the LoRA backbone's rank, and its gates (CLS cosine, each
 # factor gradient's cosine).
 MOE_ARGS = ["--moe-experts", "4"]
-TPEP_STEPS, LORA_TP_RANK, LORA_CLS_COS, LORA_GRAD_COS = 3, 8, 0.999, 0.99
+TPEP_STEPS, LORA_TP_RANK, LORA_CLS_COS, LORA_GRAD_COS = 2, 8, 0.999, 0.99
+# Module 13b-3 (phase 36): the pipeline run's stages and microbatches (the
+# ViT-S bs96 step: 2 x 96 views, 4 microbatches of 48), and its steps, of
+# a schedule of PP_STEPS + 2 that one process finishes from rank 0's
+# checkpoint.
+PP_STAGES, PP_MICRO, PP_STEPS = 2, 4, 4
+# Separates the runs that one spawn of rank workers makes in turn; the
+# two-rank CLI runs of phases 32b-36 in the order of that spawn (the LoRA
+# step of phase 35 between 34 and 36 prints no done line).
+RUN_SEP = "--then"
+RUN_DP, RUN_TP, RUN_EP, RUN_PP = range(4)
 # The host loader's tree: 48 series x 32 slices at 512^2 from the v2 profiles,
 # three times the 512 slices the loader keeps decoded in memory.
 TREE_SERIES, TREE_SLICES, TREE_SIZE = 48, 32, 512
@@ -550,16 +578,18 @@ FT_BATCH, FT_TRAIN, FT_VAL = 32, 96, 64
 # (32, 261, 1152, 6)); the share of the tree's series round5_patch_probe
 # reads (24 of 48: 768 slices, both splits of its probe hold every
 # profile); tune_throughput's smallest ViT-S batch (a multiple of 64) that
-# does not fit the card, between two bs-64 cells (on an H100 80GB HBM3 the
-# step's peak grows by ~0.127 GiB a slice and bs 512 peaks at 65.4 GiB of
-# the card's 79.2, so bs 640 needs ~81.6 and runs out); its index-CSV grid.
+# does not fit the card, between two cells of the largest that does (on an
+# H100 80GB HBM3 the step's peak grows by ~0.127 GiB a slice and bs 512
+# peaks at 65.6 GiB of the card's 79.2, so bs 640 needs ~81.8 and runs
+# out); its index-CSV grid.
 DIAG_N, PROBE_VAL_FRACTION = 32, 0.5
-TUNE_OOM_BATCH = 640
-# The synthetic cells' timed steps: over the tool's 12 (~1 s a bs-64 cell)
-# the rate moved by up to 17% from cell to cell on an H100 80GB HBM3's host,
-# with or without an OOM cell between, and by 8.6% over 50; 100 (~10 s)
-# average the host's slow spells over a longer window.
-TUNE_STEPS = 100
+TUNE_FIT_BATCH, TUNE_OOM_BATCH = 512, 640
+# The synthetic cells' timed steps. The card sets a bs-512 step (0.543 s):
+# four such cells of 20 steps, two of them after an OOM cell, stayed within
+# 2.2% in img/s on an H100 80GB HBM3. About half of a bs-64 step is the
+# host's, and inside this script its rate moved by up to 15.3% from one
+# cell to the next over 100 steps, so a bs-64 cell cannot show a 10% change.
+TUNE_STEPS = 20
 TUNE_WORKERS, TUNE_PREFETCH = ["4", "8"], ["2", "4"]
 # The fused half-blocks. Kernel 6's gate is the JAX package's (bench.py
 # --check); (b, n, dim, heads): the check shape, the serving bucket 32, the
@@ -2932,8 +2962,9 @@ def sweeps_path(tmp: Path, bench_rate: float) -> dict[str, int]:
     """Phase 30, the sweeps: bench_batch_sweep at its defaults with
     --profile (exact launches; every row ok; the per-slice device µs by
     kind; bs 96 within 5% of phase 8's bench_train_step), tune_throughput
-    --synthetic at bs 64, TUNE_OOM_BATCH, 64 (the middle cell "oom", the
-    second bs-64 cell within 10% of the first and at its peak memory), its
+    --synthetic at bs TUNE_FIT_BATCH, TUNE_OOM_BATCH, TUNE_FIT_BATCH (the
+    middle cell "oom", the second cell ok again, within 10% of the first
+    and at its peak memory), its
     index-CSV grid over the PNG tree at bs 64 (exact launches) and
     --loader-only over the same grid.
     Returns the phase's launches."""
@@ -2973,9 +3004,10 @@ def sweeps_path(tmp: Path, bench_rate: float) -> dict[str, int]:
     tune = tune_throughput.parse_args([])
     cell = tune.warmup + TUNE_STEPS
     reset_launch_counts()
-    wall, _ = run_cli(["--synthetic", "--batch-sizes", "64", str(TUNE_OOM_BATCH), "64", "--steps",
-                       str(TUNE_STEPS), "--out-dir", str(tmp / "tune_synthetic")],
-                      f"--synthetic 64 {TUNE_OOM_BATCH} 64", tune_throughput.main)
+    sizes = [str(TUNE_FIT_BATCH), str(TUNE_OOM_BATCH), str(TUNE_FIT_BATCH)]
+    wall, _ = run_cli(["--synthetic", "--batch-sizes", *sizes, "--steps", str(TUNE_STEPS),
+                       "--out-dir", str(tmp / "tune_synthetic")],
+                      "--synthetic " + " ".join(sizes), tune_throughput.main)
     got = launch_counts()
     res = json.loads((tmp / "tune_synthetic" / "results.json").read_text())
     summary = json.loads((tmp / "tune_synthetic" / "summary.json").read_text())
@@ -2984,10 +3016,10 @@ def sweeps_path(tmp: Path, bench_rate: float) -> dict[str, int]:
               f"{r.get('img_per_s')}, bound {r.get('bound')}, device_step_s {r.get('device_step_s')}, "
               f"h2d_s {r.get('h2d_s')}, peak_bytes_in_use {r.get('peak_bytes_in_use')}, error "
               f"{r.get('error')}", flush=True)
-    ok_fwd, ok_bwd = 2 * cell * 2 * depth, 2 * cell * depth  # the two bs-64 cells
+    ok_fwd, ok_bwd = 2 * cell * 2 * depth, 2 * cell * depth  # the two cells that fit
     extra = {k: got[k] - w for k, w in (("packed_attention", ok_fwd), ("packed_attention_bwd_dq", ok_bwd),
                                         ("packed_attention_bwd_dkv", ok_bwd))}
-    print(f"tune_throughput --synthetic ({wall:.1f} s): summary {summary}; launches {got}: the bs-64 "
+    print(f"tune_throughput --synthetic ({wall:.1f} s): summary {summary}; launches {got}: the bs-{TUNE_FIT_BATCH} "
           f"cells {ok_fwd} / {ok_bwd} / {ok_bwd}, the out-of-memory cell {extra} before it ran out",
           flush=True)
     if ([r["status"] for r in res] != ["ok", "oom", "ok"] or summary["oom_batches"] != [TUNE_OOM_BATCH]
@@ -3132,19 +3164,35 @@ def nccl_step_worker(coord: str, out: Path) -> int:
 
 
 def rank_worker(coord: str, world: int, rank: int, out: Path, argv: list[str]) -> int:
-    """Phases 32b-35, in a child process: rank *rank* of a gloo group of
-    *world* on the card, running the pretraining CLI with *argv* and the
-    dist flags; writes its launch counts to out/launches_rank{rank}.json."""
+    """Phases 32b-36, in a child process: rank *rank* of a gloo group of
+    *world* on the card, running each run of *argv* in turn in the one
+    group (runs separated by RUN_SEP, which saves a process start-up a
+    run): the pretraining CLI with the run's flags and the dist flags,
+    writing its launch counts to launches_rank{rank}.json and its peak of
+    allocated card memory to memory_rank{rank}.json in the run's --run-dir;
+    or ``lora-tp DIR``, :func:`lora_tp_rank` into DIR. Stops at the first
+    CLI run that does not return 0."""
     init_distributed(coord, world, rank, backend="gloo")
     try:
-        reset_launch_counts()
-        rc = pretrain.main(argv + ["--dist-coordinator", coord, "--dist-processes", str(world),
-                                   "--dist-process-id", str(rank)])
-        torch.cuda.synchronize()
-        (out / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
+        runs = [list(g) for sep, g in itertools.groupby(argv, lambda a: a == RUN_SEP) if not sep]
+        for run in runs:
+            if run[0] == "lora-tp":
+                lora_tp_rank(world, rank, Path(run[1]))
+                continue
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            rc = pretrain.main(run + ["--dist-coordinator", coord, "--dist-processes", str(world),
+                                      "--dist-process-id", str(rank)])
+            torch.cuda.synchronize()
+            if rc != 0:
+                return rc
+            run_dir = Path(run[run.index("--run-dir") + 1])
+            (run_dir / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
+            (run_dir / f"memory_rank{rank}.json").write_text(json.dumps(
+                {"max_memory_allocated": torch.cuda.max_memory_allocated()}))
     finally:
         dist.destroy_process_group()
-    return rc
+    return 0
 
 
 def spawn_ranks(kind: str, world: int, out: Path, argv: list[str], timeout: float = 600) -> list[str]:
@@ -3239,19 +3287,66 @@ def resume_in_one_process(label: str, argv: list[str], ranks: Path, one: Path, o
     return max(rel.values())
 
 
-def rank_step_s(log: str) -> float:
-    """Rank 0's seconds a step from the CLI's closing ``done`` line."""
-    m = re.search(r"done steps=(\d+) wall_s=([0-9.]+)", log)
-    if not m:
-        fail("the rank-0 log has no done line")
-    return float(m.group(2)) / int(m.group(1))
+def rank_step_s(log: str, run: int = 0) -> float:
+    """Rank 0's seconds a step from the closing ``done`` line of its *run*-th CLI run."""
+    done = re.findall(r"done steps=(\d+) wall_s=([0-9.]+)", log)
+    if len(done) <= run:
+        fail(f"the rank-0 log has no done line for run {run}")
+    return float(done[run][1]) / int(done[run][0])
 
 
-def mesh_path(tmp: Path) -> dict:
+def tp_args() -> list[str]:
+    """Phase 33's flags, shared by its ranks and its one-process runs."""
+    return MESH_ARGS + ["--max-steps", str(MESH_TP_STEPS + 2), "--fused-attn", "--ckpt-every",
+                        str(MESH_TP_STEPS)]
+
+
+def ep_args() -> list[str]:
+    """Phase 34's flags, shared by its ranks and its one-process runs."""
+    return MESH_ARGS + MOE_ARGS + ["--max-steps", str(MESH_CLI_STEPS + 2), "--ckpt-every", str(MESH_CLI_STEPS)]
+
+
+def pp_args() -> list[str]:
+    """Phase 36's flags, shared by its ranks and its one-process runs."""
+    return MESH_ARGS + ["--attn-impl", "xla", "--max-steps", str(PP_STEPS + 2), "--ckpt-every", str(PP_STEPS)]
+
+
+def two_rank_runs(tmp: Path) -> list[str]:
+    """Phases 32b-36's two-rank runs in one spawn of two children, one after
+    the other in one gloo group (one process start-up for all of them):
+    32b's dp run, 33's tp + SP run, 34's ep run, the LoRA backbone at tp 2
+    (beside 35) and 36's pipeline run, into tmp/{dp,tp,ep,lora_tp,pp}.
+    Returns the children's outputs."""
+    t0 = time.perf_counter()
+    dirs = {k: tmp / k for k in ("dp", "tp", "ep", "lora_tp", "pp")}
+    for d in dirs.values():
+        d.mkdir()
+    runs = [
+        MESH_ARGS + ["--max-steps", str(MESH_CLI_STEPS), "--ckpt-every", str(MESH_CLI_STEPS)],
+        tp_args() + ["--stop-after", str(MESH_TP_STEPS), "--model-parallel", "2", "--sequence-parallel"],
+        ep_args() + ["--stop-after", str(MESH_CLI_STEPS), "--expert-parallel", "2"],
+        pp_args() + ["--stop-after", str(PP_STEPS), "--pipeline-parallel", str(PP_STAGES), "--pp-microbatches",
+                     str(PP_MICRO)],
+    ]
+    argv = []
+    for run, name in zip(runs, ("dp", "tp", "ep", "pp")):
+        if name == "pp":  # the LoRA step runs in the same children, before the pipeline
+            argv += ["lora-tp", str(dirs["lora_tp"]), RUN_SEP]
+        argv += run + ["--run-dir", str(dirs[name]), RUN_SEP]
+    logs = spawn_ranks("rank", 2, tmp, argv[:-1])
+    walls = [float(w) for w in re.findall(r"done steps=\d+ wall_s=([0-9.]+)", logs[0])]
+    print(f"phases 32b-36's two-rank runs (dp, tp + SP, ep, LoRA at tp 2, pp) in one spawn of two gloo "
+          f"children: {time.perf_counter() - t0:.1f} s; rank 0's CLI runs took {walls} s (done lines)",
+          flush=True)
+    return logs
+
+
+def mesh_path(tmp: Path, logs: list[str]) -> dict:
     """Phases 32-33 (module 13a): the world-1 NCCL step, then the two-rank
     gloo runs of the CLI (data parallel; tensor + sequence parallel with
-    --fused-attn, resumed in one process). Returns the launches per rank and
-    the readings."""
+    --fused-attn, resumed in one process) of :func:`two_rank_runs`, whose
+    children's outputs are *logs*, against one process. Returns the
+    launches per rank and the readings."""
     t0 = time.perf_counter()
     out = tmp / "nccl"
     out.mkdir()
@@ -3273,13 +3368,11 @@ def mesh_path(tmp: Path) -> dict:
 
     per_step = MESH_CLI_STEPS
     dp_dir, one_dp = tmp / "dp", tmp / "one_dp"
-    dp_dir.mkdir()
-    logs = spawn_ranks("rank", 2, dp_dir,
-                       MESH_ARGS + ["--max-steps", str(per_step), "--run-dir", str(dp_dir)])
+    tp_dir, one_tp, resumed = tmp / "tp", tmp / "one_tp", tmp / "tp_resumed"
     dp_counts = [json.loads((dp_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
     reset_launch_counts()
-    wall, one_log = run_cli(MESH_ARGS + ["--max-steps", str(per_step), "--run-dir", str(one_dp)],
-                            "phase 32b one-process run")
+    _, one_log = run_cli(MESH_ARGS + ["--max-steps", str(per_step), "--ckpt-every", str(per_step),
+                                      "--run-dir", str(one_dp)], "phase 32b one-process run")
     one_counts = launch_counts()
     if one_counts != want_counts(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
                                  packed_attention_bwd_dkv=12 * per_step):
@@ -3288,22 +3381,16 @@ def mesh_path(tmp: Path) -> dict:
                           list(range(1, per_step + 1)), dp_counts,
                           dict(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
                                packed_attention_bwd_dkv=12 * per_step))
-    dp["step_ms"], dp["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
+    dp["step_ms"], dp["one_step_ms"] = 1e3 * rank_step_s(logs[0], RUN_DP), 1e3 * rank_step_s(one_log)
     t32b = time.perf_counter() - t0 - t32a
     print(f"phase 32b step: {dp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors: every "
           f"collective staged on the host, not NCCL's time), {dp['one_step_ms']:.1f} ms in one process "
           f"(the CLI's done lines, host batches)", flush=True)
 
-    tp_dir, one_tp, resumed = tmp / "tp", tmp / "one_tp", tmp / "tp_resumed"
-    tp_dir.mkdir()
-    per_step = MESH_TP_STEPS
-    total = per_step + 2
-    tp_args = MESH_ARGS + ["--max-steps", str(total), "--fused-attn", "--ckpt-every", str(per_step)]
-    logs = spawn_ranks("rank", 2, tp_dir, tp_args + ["--stop-after", str(per_step), "--model-parallel", "2",
-                                                     "--sequence-parallel", "--run-dir", str(tp_dir)])
+    per_step, total = MESH_TP_STEPS, MESH_TP_STEPS + 2
     tp_counts = [json.loads((tp_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
     reset_launch_counts()
-    _, one_log = run_cli(tp_args + ["--run-dir", str(one_tp)], "phase 33 one-process --fused-attn run")
+    _, one_log = run_cli(tp_args() + ["--run-dir", str(one_tp)], "phase 33 one-process --fused-attn run")
     one_counts = launch_counts()
     if one_counts != want_counts(fused_attn_block=24 * total, packed_attention_bwd_dq=12 * total,
                                  packed_attention_bwd_dkv=12 * total):
@@ -3312,14 +3399,14 @@ def mesh_path(tmp: Path) -> dict:
                           "process --fused-attn", tp_dir, one_tp, list(range(1, per_step + 1)), tp_counts,
                           dict(packed_attention=24 * per_step, packed_attention_bwd_dq=12 * per_step,
                                packed_attention_bwd_dkv=12 * per_step))
-    tp["step_ms"], tp["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
-    rel = resume_in_one_process("phase 33", tp_args, tp_dir, one_tp, resumed, per_step, total)
+    tp["step_ms"], tp["one_step_ms"] = 1e3 * rank_step_s(logs[0], RUN_TP), 1e3 * rank_step_s(one_log)
+    rel = resume_in_one_process("phase 33", tp_args(), tp_dir, one_tp, resumed, per_step, total)
     print(f"phase 33 step: {tp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors, not NCCL's "
           f"time), {tp['one_step_ms']:.1f} ms in one process with kernel 6", flush=True)
     tp["resume_max_rel_loss"] = rel
     wall = time.perf_counter() - t0
-    print(f"phases 32-33 (module 13a): {wall:.1f} s (32a {t32a:.1f}, 32b {t32b:.1f}, 33 "
-          f"{wall - t32a - t32b:.1f})", flush=True)
+    print(f"phases 32-33 (module 13a), after the shared two-rank spawn: {wall:.1f} s (32a {t32a:.1f}, 32b "
+          f"{t32b:.1f}, 33 {wall - t32a - t32b:.1f})", flush=True)
     return {"nccl": nccl, "dp": dp, "tp": tp, "dp_counts": dp_counts[0], "tp_counts": tp_counts[0]}
 
 
@@ -3364,40 +3451,32 @@ def lora_tp_step(mesh=None) -> dict[str, np.ndarray]:
     return {"cls": cls, **{n: g.float().cpu().numpy() for (n, _), g in zip(named, grads)}}
 
 
-def lora_tp_worker(coord: str, world: int, rank: int, out: Path) -> int:
-    """Beside phase 35, in a child process: rank *rank* of a gloo group of
-    *world* on the card, the model group of the LoRA backbone's step
-    (:func:`lora_tp_step`); rank 0 writes out/lora_tp.npz, every rank its
-    launch counts."""
-    init_distributed(coord, world, rank, backend="gloo")
-    try:
-        mesh = make_mesh(model_parallel=world)
-        reset_launch_counts()
-        res = lora_tp_step(mesh)
-        (out / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
-        if rank == 0:
-            np.savez(out / "lora_tp.npz", **res)
-    finally:
-        dist.destroy_process_group()
-    return 0
+def lora_tp_rank(world: int, rank: int, out: Path) -> None:
+    """Beside phase 35, in a rank worker (after phase 34's run): rank *rank*
+    of the gloo group of *world* on the card as the model group of the LoRA
+    backbone's step (:func:`lora_tp_step`); rank 0 writes out/lora_tp.npz,
+    every rank its launch counts."""
+    mesh = make_mesh(model_parallel=world)
+    reset_launch_counts()
+    res = lora_tp_step(mesh)
+    (out / f"launches_rank{rank}.json").write_text(json.dumps(launch_counts()))
+    if rank == 0:
+        np.savez(out / "lora_tp.npz", **res)
 
 
-def expert_path(tmp: Path) -> dict:
+def expert_path(tmp: Path, logs: list[str]) -> dict:
     """Phases 34-35 (module 13b's first parts): the two-rank expert-parallel
-    CLI run and the four-rank tensor x expert run against one process each,
-    both resumed in one process from rank 0's checkpoint, and the LoRA
-    backbone at tp 2. Returns the readings and a rank's launches."""
+    CLI run of :func:`two_rank_runs` (children's outputs *logs*) and the
+    four-rank tensor x expert run against one process each, both resumed
+    in one process from rank 0's checkpoint, and the LoRA backbone at tp 2
+    of the same spawn. Returns the readings and a rank's launches."""
     t0 = time.perf_counter()
     per_rank = MESH_CLI_STEPS
     total = per_rank + 2
-    ep_args = MESH_ARGS + MOE_ARGS + ["--max-steps", str(total)]
-    ep_dir, one_ep = tmp / "ep", tmp / "one_ep"
-    ep_dir.mkdir()
-    logs = spawn_ranks("rank", 2, ep_dir, ep_args + ["--stop-after", str(per_rank), "--expert-parallel", "2",
-                                                     "--run-dir", str(ep_dir)])
+    ep_dir, one_ep, lora_dir = tmp / "ep", tmp / "one_ep", tmp / "lora_tp"
     ep_counts = [json.loads((ep_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
     reset_launch_counts()
-    _, one_log = run_cli(ep_args + ["--run-dir", str(one_ep)], "phase 34 one-process run")
+    _, one_log = run_cli(ep_args() + ["--run-dir", str(one_ep)], "phase 34 one-process run")
     one_counts = launch_counts()
     if one_counts != want_counts(packed_attention=24 * total, packed_attention_bwd_dq=12 * total,
                                  packed_attention_bwd_dkv=12 * total):
@@ -3406,16 +3485,16 @@ def expert_path(tmp: Path) -> dict:
                           ep_dir, one_ep, list(range(1, per_rank + 1)), ep_counts,
                           dict(packed_attention=24 * per_rank, packed_attention_bwd_dq=12 * per_rank,
                                packed_attention_bwd_dkv=12 * per_rank))
-    ep["step_ms"], ep["one_step_ms"] = 1e3 * rank_step_s(logs[0]), 1e3 * rank_step_s(one_log)
-    ep["resume_max_rel_loss"] = resume_in_one_process("phase 34", ep_args, ep_dir, one_ep, tmp / "ep_resumed",
-                                                      per_rank, total)
+    ep["step_ms"], ep["one_step_ms"] = 1e3 * rank_step_s(logs[0], RUN_EP), 1e3 * rank_step_s(one_log)
+    ep["resume_max_rel_loss"] = resume_in_one_process("phase 34", ep_args(), ep_dir, one_ep,
+                                                      tmp / "ep_resumed", per_rank, total)
     t34 = time.perf_counter() - t0
     print(f"phase 34 step: {ep['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors, not NCCL's "
           f"time), {ep['one_step_ms']:.1f} ms in one process; {t34:.1f} s", flush=True)
 
     total = TPEP_STEPS + 2
     tpep_args = with_batch(MESH_ARGS, TPEP_BATCH) + MOE_ARGS + [
-        "--sequence-parallel", "--factored-nu", "--max-steps", str(total)]
+        "--sequence-parallel", "--factored-nu", "--max-steps", str(total), "--ckpt-every", str(TPEP_STEPS)]
     tpep_dir, one_tpep = tmp / "tpep", tmp / "one_tpep"
     tpep_dir.mkdir()
     logs = spawn_ranks("rank", 4, tpep_dir, tpep_args + [
@@ -3440,9 +3519,6 @@ def expert_path(tmp: Path) -> dict:
     print(f"phase 35 step: {tpep['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors), "
           f"{tpep['one_step_ms']:.1f} ms in one process; {t35:.1f} s", flush=True)
 
-    lora_dir = tmp / "lora_tp"
-    lora_dir.mkdir()
-    spawn_ranks("lora-tp", 2, lora_dir, [])
     lora_counts = [json.loads((lora_dir / f"launches_rank{r}.json").read_text()) for r in range(2)]
     got = dict(np.load(lora_dir / "lora_tp.npz"))
     reset_launch_counts()
@@ -3467,6 +3543,62 @@ def expert_path(tmp: Path) -> dict:
           flush=True)
     return {"ep": ep, "tp_ep": tpep, "lora_tp": {"cls_cosine_min": cls_cos, "grad_cosine_min": grad_cos[worst]},
             "ep_counts": ep_counts[0], "tp_ep_counts": tpep_counts[0], "lora_tp_counts": lora_counts[0]}
+
+
+def pipe_path(tmp: Path, logs: list[str]) -> dict:
+    """Phase 36 (module 13b-3): the two-rank pipeline-parallel CLI run of
+    :func:`two_rank_runs` (children's outputs *logs*) against the
+    one-process --attn-impl xla run, resumed in one process from rank 0's
+    checkpoint; each rank's share of the state and its peak memory beside
+    the one process's. Returns the readings and a rank's launches."""
+    t0 = time.perf_counter()
+    total = PP_STEPS + 2
+    pp_dir, one_pp = tmp / "pp", tmp / "one_pp"
+    counts = [json.loads((pp_dir / f"launches_rank{r}.json").read_text()) for r in range(PP_STAGES)]
+    peaks = [json.loads((pp_dir / f"memory_rank{r}.json").read_text())["max_memory_allocated"]
+             for r in range(PP_STAGES)]
+    reset_launch_counts()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, one_log = run_cli(pp_args() + ["--run-dir", str(one_pp)], "phase 36 one-process --attn-impl xla run")
+    one_peak = torch.cuda.max_memory_allocated() - before
+    if launch_counts() != want_counts():
+        fail(f"the one-process --attn-impl xla run of phase 36 launched {launch_counts()}")
+    pp = compare_mesh_run(f"phase 36, pp {PP_STAGES} with {PP_MICRO} microbatches, --attn-impl xla (two "
+                          "gloo ranks on one card) vs one process --attn-impl xla", pp_dir, one_pp,
+                          list(range(1, PP_STEPS + 1)), counts, {})
+    pp["step_ms"], pp["one_step_ms"] = 1e3 * rank_step_s(logs[0], RUN_PP), 1e3 * rank_step_s(one_log)
+    pp["resume_max_rel_loss"] = resume_in_one_process("phase 36", pp_args(), pp_dir, one_pp,
+                                                      tmp / "pp_resumed", PP_STEPS, total)
+    # What each rank holds: its stage cut of the one-process checkpoint.
+    full = load_file(pp_dir / "ckpt" / str(PP_STEPS) / "state.safetensors")
+
+    def nbytes(arrays: dict, prefixes: tuple[str, ...]) -> int:
+        return sum(a.nbytes for k, a in arrays.items() if k.startswith(prefixes))
+
+    parts = ("student.",), ("student.", "teacher.", "optimizer.")
+    ranks = [stage_tensors(full, Mesh(PP_STAGES, r, 1, 1, None, None, torch.device("cuda"), pp=PP_STAGES))
+             for r in range(PP_STAGES)]
+    pp["param_bytes"] = [nbytes(a, parts[0]) for a in ranks]
+    pp["state_bytes"] = [nbytes(a, parts[1]) for a in ranks]
+    pp["max_memory_allocated"] = peaks
+    pp["one"] = {"param_bytes": nbytes(full, parts[0]), "state_bytes": nbytes(full, parts[1]),
+                 "max_memory_allocated": one_peak}
+    wall = time.perf_counter() - t0
+    pp["seconds"] = wall
+    pp["rank_run_s"] = float(re.findall(r"done steps=\d+ wall_s=([0-9.]+)", logs[0])[RUN_PP])
+    print(f"phase 36 memory: parameter bytes per rank {pp['param_bytes']} against {pp['one']['param_bytes']} "
+          f"in one process; state bytes (student, teacher, moments) {pp['state_bytes']} against "
+          f"{pp['one']['state_bytes']}; max_memory_allocated per rank {peaks} against {one_peak} "
+          f"(the one process's peak over what this process held before it)", flush=True)
+    print(f"phase 36 step: {pp['step_ms']:.1f} ms a step on rank 0 (gloo on CUDA tensors: the hops "
+          f"and the rest's gradient sum staged on the host, not NCCL's time), {pp['one_step_ms']:.1f} ms "
+          f"in one process; phase 36 (module 13b-3): {wall:.1f} s after the shared two-rank spawn, in which "
+          f"its ranks' CLI run took {pp['rank_run_s']:.1f} s (rank 0's done line)", flush=True)
+    if not all(b < pp["one"]["param_bytes"] for b in pp["param_bytes"]):
+        fail("a pipeline rank holds as many parameter bytes as one process")
+    return {"pp": pp, "pp_counts": counts[0]}
 
 
 def main() -> int:
@@ -3654,28 +3786,34 @@ def main() -> int:
 
     # -- module 13a: the (data, model) mesh, then kernel 1 and the pair at
     # the blocks its ranks run --
+    # (Modules 13a-13b-3 share one temp dir and one spawn of the two-rank runs.)
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_res = mesh_path(Path(tmp))
-    dp_fwd = time_forward(peaks, MESH_DP_SHAPE, "a dp-2 rank of the bs96 step", SEED + 15)
-    dp_bwd = time_backward(peaks, MESH_DP_SHAPE)
-    tp_fwd = time_forward(peaks, MESH_TP_SHAPE, "a tp-2 rank of the bs96 step", SEED + 16)
-    tp_bwd = time_backward(peaks, MESH_TP_SHAPE)
-    print(json.dumps({"module13a": {k: mesh_res[k] for k in ("dp", "tp")} | {
-        "nccl": {k: mesh_res["nccl"][k] for k in ("metrics_bit_equal", "state_bit_equal", "step_s",
-                                                    "bucket_mb", "allreduce_ms")}}}), flush=True)
+        tmp13 = Path(tmp)
+        two_rank_logs = two_rank_runs(tmp13)
+        mesh_res = mesh_path(tmp13, two_rank_logs)
+        dp_fwd = time_forward(peaks, MESH_DP_SHAPE, "a dp-2 rank of the bs96 step", SEED + 15)
+        dp_bwd = time_backward(peaks, MESH_DP_SHAPE)
+        tp_fwd = time_forward(peaks, MESH_TP_SHAPE, "a tp-2 rank of the bs96 step", SEED + 16)
+        tp_bwd = time_backward(peaks, MESH_TP_SHAPE)
+        print(json.dumps({"module13a": {k: mesh_res[k] for k in ("dp", "tp")} | {
+            "nccl": {k: mesh_res["nccl"][k] for k in ("metrics_bit_equal", "state_bit_equal", "step_s",
+                                                        "bucket_mb", "allreduce_ms")}}}), flush=True)
 
-    # -- module 13b's first parts: the expert axis, MoE, LoRA and factored
-    # moments under tp, then kernel 1 and the pair at a tp x ep rank's block --
-    with tempfile.TemporaryDirectory() as tmp:
-        ep_res = expert_path(Path(tmp))
-    tpep_fwd = time_forward(peaks, MESH_TPEP_SHAPE, "a tp-2 x ep-2 rank of the bs32 step", SEED + 17)
-    tpep_bwd = time_backward(peaks, MESH_TPEP_SHAPE)
-    print(json.dumps({"module13b": {k: ep_res[k] for k in ("ep", "tp_ep", "lora_tp")}}), flush=True)
+        # -- module 13b's first parts: the expert axis, MoE, LoRA and factored
+        # moments under tp, then kernel 1 and the pair at a tp x ep rank's block --
+        ep_res = expert_path(tmp13, two_rank_logs)
+        tpep_fwd = time_forward(peaks, MESH_TPEP_SHAPE, "a tp-2 x ep-2 rank of the bs32 step", SEED + 17)
+        tpep_bwd = time_backward(peaks, MESH_TPEP_SHAPE)
+        print(json.dumps({"module13b": {k: ep_res[k] for k in ("ep", "tp_ep", "lora_tp")}}), flush=True)
+
+        # -- module 13b-3: the (data, pipe) mesh, GPipe over two gloo ranks --
+        pp_res = pipe_path(tmp13, two_rank_logs)
+    print(json.dumps({"module13b3": pp_res["pp"]}), flush=True)
 
     def mesh_launches(name: str) -> dict[str, int]:
         return {"dp_launches": mesh_res["dp_counts"][name], "tp_launches": mesh_res["tp_counts"][name],
                 "ep_launches": ep_res["ep_counts"][name], "tp_ep_launches": ep_res["tp_ep_counts"][name],
-                "lora_tp_launches": ep_res["lora_tp_counts"][name]}
+                "lora_tp_launches": ep_res["lora_tp_counts"][name], "pp_launches": pp_res["pp_counts"][name]}
 
     def later_paths(name: str) -> dict[str, int]:
         return {"eval_launches": eval_counts[name],
@@ -3858,14 +3996,12 @@ def main() -> int:
 
 
 def worker(argv: list[str]) -> int:
-    """A child of phases 32-35: ``--worker KIND COORD WORLD RANK OUT [ARGV...]``."""
+    """A child of phases 32-36: ``--worker KIND COORD WORLD RANK OUT [ARGV...]``."""
     kind, coord, world, rank, out = argv[0], argv[1], int(argv[2]), int(argv[3]), Path(argv[4])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     if kind == "nccl-step":
         return nccl_step_worker(coord, out)
-    if kind == "lora-tp":
-        return lora_tp_worker(coord, world, rank, out)
     return rank_worker(coord, world, rank, out, argv[5:])
 
 

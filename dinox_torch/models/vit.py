@@ -685,3 +685,13 @@ class DinoStudentTeacher(nn.Module):
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.forward_features(x, spacing)[0]
+
+    # The pipeline's seams (parallel.pipeline, train.pp_step): stage 0 embeds,
+    # the last stage finalizes; the blocks run between them.
+    def embed(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.backbone.embed(x, spacing)
+
+    def finalize(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(head output, all tokens after the final norm) of the block stack's output."""
+        feats = self.backbone.run_final_norm(tokens)
+        return self.head(feats[:, 0]), feats

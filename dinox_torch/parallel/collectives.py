@@ -18,12 +18,16 @@ collectives itself. Here they are explicit:
   backward), which enter and leave a region sharded along an axis whose
   inputs and outputs are the same on every rank of the group;
 * :func:`mean_over_group`, whose value is the group's mean and whose
-  gradient is the rank's own term.
+  gradient is the rank's own term;
+* :func:`broadcast` from one rank of the group, and the pipeline's hop
+  between the two ranks of a stage pair, :func:`send` and :func:`recv`.
 
 The group's backend decides how the gathers and scatters are built: NCCL
 runs its native ops; for gloo they are composed from ``all_reduce``, which
 is exact for floats (an all-gather adds zeros to each rank's slot, a
-reduce-scatter reduces everything and keeps the rank's chunk). Gloo has no
+reduce-scatter reduces everything and keeps the rank's chunk; a broadcast,
+and so a hop, sums the tensor's bytes as uint8, the source's and zeros,
+which delivers every bit pattern as the source sent it). Gloo has no
 reduce-scatter for CUDA tensors, and the composition is what lets two gloo
 ranks share one card; the CPU tests run the same composed code. Sums of
 reduced-precision tensors are taken in float32 and rounded once; a gather
@@ -106,6 +110,50 @@ def reduce_scatter(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
         dist.all_reduce(xs, group=group)
         out = xs.chunk(n)[r]
     return out.to(x.dtype).movedim(0, dim).contiguous()
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """The bytes of a contiguous tensor, a uint8 view of its storage."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def broadcast(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:
+    """Group rank *src*'s *x* on every rank of the group, a new tensor; the
+    other ranks' *x* gives only the shape, dtype and device."""
+    if group is None:
+        return x.clone()
+    out = x.clone(memory_format=torch.contiguous_format)
+    if _native(group):
+        dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+        return out
+    if group_rank(group) != src:
+        out.zero_()
+    dist.all_reduce(_bytes(out), group=group)
+    return out
+
+
+def send(x: torch.Tensor, group: Group, peer: int) -> None:
+    """Send *x* to group rank *peer* of a two-rank group, which calls
+    :func:`recv`: NCCL's point-to-point send; on gloo a :func:`broadcast`."""
+    if _native(group):
+        op = dist.P2POp(dist.isend, x.contiguous(), dist.get_global_rank(group, peer), group)
+        for req in dist.batch_isend_irecv([op]):
+            req.wait()
+    else:
+        broadcast(x, group_rank(group), group)
+
+
+def recv(shape, dtype: torch.dtype, device, group: Group, peer: int) -> torch.Tensor:
+    """The tensor group rank *peer* of a two-rank group sends (:func:`send`)."""
+    if _native(group):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        op = dist.P2POp(dist.irecv, out, dist.get_global_rank(group, peer), group)
+        for req in dist.batch_isend_irecv([op]):
+            req.wait()
+        return out
+    out = torch.zeros(shape, dtype=dtype, device=device)
+    dist.all_reduce(_bytes(out), group=group)
+    return out
 
 
 def chunk(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """The ``(data, model[, expert])`` mesh over processes: the counterpart of
-``dinox_tpu.parallel.mesh``.
+``dinox_tpu.parallel.mesh``; and the ``(data, pipe)`` mesh of
+``parallel.pipeline.make_pp_mesh``.
 
 One process per card, the PyTorch idiom, in place of JAX's one controller
 per host. The world of W processes is laid out as ``make_mesh``'s
@@ -38,6 +39,7 @@ from dinox_torch.utils.platform import resolve_device
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 
 _HOST_GROUP: list = []  # the gloo group of host_barrier, made by init_distributed
 TIMEOUT_S = 600.0  # the process group's and the host barrier's
@@ -107,7 +109,11 @@ class Mesh:
     expert axis (same dp_rank and tp_rank), the number of hosts, and the
     device this rank computes on. Groups are ``None`` on a world of one
     process with no process group, and the expert group is ``None`` with
-    ep 1."""
+    ep 1. On a ``(data, pipe)`` mesh (``parallel.pipeline.make_pp_mesh``)
+    *pp* is the pipe axis's size, the data group is the stage's (same
+    stage), *pipe_group* the ranks of this rank's data rank (every stage)
+    and *pipe_pairs* the two-rank groups of this stage with the one before
+    and the one after it (``None`` at the ends)."""
 
     world: int
     rank: int
@@ -119,10 +125,18 @@ class Mesh:
     hosts: int = 1
     ep: int = 1
     expert_group: Any = None
+    pp: int = 1
+    pipe_group: Any = None
+    pipe_pairs: tuple = (None, None)
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // (self.tp * self.ep)
+        return self.rank // (self.tp * self.ep * self.pp)
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (0 without a pipe axis)."""
+        return self.rank % self.pp
 
     @property
     def tp_rank(self) -> int:
@@ -318,10 +332,15 @@ def shard_model(model: torch.nn.Module, mesh: Mesh, optimizer=None) -> torch.nn.
     entries in *optimizer*'s state (by the name ``{param}.{key}``). An
     optimizer that keeps statistics over a parameter's axes (``cut_axis``,
     ``train.optim.AdamFactored``) learns which axis is cut and over which
-    group. Returns *model*."""
+    group. On a pipe axis (pp > 1) the model keeps only its stage's blocks
+    and their optimizer entries (``parallel.pipeline.cut_to_stage``).
+    Returns *model*."""
     from dinox_torch.models.vit import set_mesh
+    from dinox_torch.parallel.pipeline import cut_to_stage
 
     set_mesh(model, mesh)
+    if mesh.pp > 1:
+        cut_to_stage(model, mesh, optimizer)
     if mesh.tp == 1 and mesh.ep == 1:
         return model
     note_cut = getattr(optimizer, "cut_axis", None)
@@ -354,8 +373,13 @@ def shard_state(state, mesh: Mesh):
 def gather_tensors(tensors: Mapping[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
     """Checkpoint-named tensors (``train.checkpoint.state_tensors``) of this
     rank, put back together over the model and expert groups: every rank
-    calls it and gets the full tensors. With tp 1 and ep 1 the tensors are
-    returned as they are."""
+    calls it and gets the full tensors. On a pipe axis the other stages'
+    blocks are gathered over the pipe group (``parallel.pipeline.gather_stages``).
+    With tp 1, ep 1 and pp 1 the tensors are returned as they are."""
+    if mesh.pp > 1:
+        from dinox_torch.parallel.pipeline import gather_stages
+
+        return gather_stages(tensors, mesh)
     if mesh.tp == 1 and mesh.ep == 1:
         return dict(tensors)
     out = {}
@@ -378,7 +402,12 @@ def gather_state(state, mesh: Mesh) -> dict[str, torch.Tensor]:
 
 
 def shard_tensors(arrays: Mapping[str, Any], mesh: Mesh) -> dict[str, Any]:
-    """This rank's shards of full checkpoint-named arrays (numpy or tensors)."""
+    """This rank's shards of full checkpoint-named arrays (numpy or tensors):
+    on a pipe axis, the rest and this stage's blocks."""
+    if mesh.pp > 1:
+        from dinox_torch.parallel.pipeline import stage_tensors
+
+        return stage_tensors(arrays, mesh)
     if mesh.tp == 1 and mesh.ep == 1:
         return dict(arrays)
     out = {}

@@ -25,6 +25,12 @@ Examples:
         --moe-experts 4 --model-parallel 2 --expert-parallel 2 --sequence-parallel \
         --run-dir /tmp/tpep --dist-coordinator host0:29500 --dist-processes 4 --dist-process-id 0
 
+    # Two processes, one pipeline stage of 6 blocks each (GPipe, 4
+    # microbatches); one such command per process id 0-1
+    python -m dinox_torch.pretrain --config vit-small --synthetic --batch-size 96 \
+        --pipeline-parallel 2 --pp-microbatches 4 --run-dir /tmp/pp \
+        --dist-coordinator host0:29500 --dist-processes 2 --dist-process-id 0
+
 Multi-process runs (module 13): ``--dist-processes W`` processes, one card
 each (``cuda:{rank % device_count}``), on the ``(data, model[, expert])``
 mesh of ``parallel.mesh`` with ``--model-parallel`` ranks to a model group,
@@ -34,7 +40,13 @@ what one process trains on the same global batch: each rank takes its data
 rank's rows, and rank 0 writes the run dir (config, metrics, checkpoints in
 the one-process layout, which one process resumes). A process group
 already set up by the caller with the same world size and rank is used as
-it is. Pipeline parallelism raises NotImplementedError naming module 13b.
+it is. ``--pipeline-parallel S`` trains on the ``(data, pipe)`` mesh of
+``parallel.pipeline`` instead, each rank one stage of ``depth / S`` blocks
+(``train.pp_step``: GPipe over ``--pp-microbatches``, default S; DINO or
+SimCLR, dense blocks, no accumulation; the stage blocks run the plain
+``attn_impl="xla"`` attention whatever ``--attn-impl`` says, as the
+reference's do). It excludes ``--model-parallel`` and ``--expert-parallel``
+and takes no ``--monitor-every`` (exit 2).
 """
 
 from __future__ import annotations
@@ -59,7 +71,9 @@ from dinox_torch.data.slice_cache import build_slice_cache, open_slice_cache
 from dinox_torch.data.synthetic import make_batch_fn, upsample
 from dinox_torch.models.config import MODEL_CONFIGS
 from dinox_torch.parallel.mesh import batch_rows, init_distributed, make_mesh
+from dinox_torch.parallel.pipeline import make_pp_mesh
 from dinox_torch.train.checkpoint import CheckpointManager, CheckpointWedgedError, find_latest_run
+from dinox_torch.train.pp_step import build_pp_train_step, check_pp_config, create_pp_train_state
 from dinox_torch.train.state import TrainConfig, create_train_state, reject_unported
 from dinox_torch.train.step import build_train_step
 from dinox_torch.train.trainer import train
@@ -183,8 +197,10 @@ def parse_args(argv=None):
     p.add_argument("--profile-start", type=int, default=2)
     p.add_argument("--model-parallel", type=int, default=1,
                    help="ranks of a model group (tensor parallel); divides --dist-processes")
-    p.add_argument("--pipeline-parallel", type=int, default=1, help="above 1 not ported: module 13b")
-    p.add_argument("--pp-microbatches", type=int, default=None)
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="pipeline stages (GPipe, one process a stage); divides --dist-processes")
+    p.add_argument("--pp-microbatches", type=int, default=None,
+                   help="GPipe microbatches of a step (default: --pipeline-parallel)")
     p.add_argument("--dist-coordinator", default=None,
                    help="host:port of process 0's TCP store; with --dist-processes/--dist-process-id")
     p.add_argument("--dist-processes", type=int, default=0)
@@ -388,6 +404,15 @@ def main(argv=None) -> int:
         print(f"error: --expert-parallel {args.expert_parallel} needs --moe-experts divisible by it, "
               f"got {args.moe_experts}", file=sys.stderr)
         return 2
+    if args.pipeline_parallel > 1:
+        # The (data, pipe) mesh excludes the model and expert axes, and a
+        # rank holds one stage, not the student the monitor's probe runs.
+        for flag, value in (("--model-parallel", args.model_parallel),
+                            ("--expert-parallel", args.expert_parallel),
+                            ("--monitor-every", args.monitor_every)):
+            if value > (0 if flag == "--monitor-every" else 1):
+                print(f"error: --pipeline-parallel and {flag} are mutually exclusive", file=sys.stderr)
+                return 2
     device = resolve_device(args.device)
     started = join_processes(args, device)
     try:
@@ -399,7 +424,11 @@ def main(argv=None) -> int:
 
 def run(args, device: torch.device, t_main: float, argv) -> int:
     mesh = None
-    if args.dist_processes > 1 or args.model_parallel > 1 or args.expert_parallel > 1:
+    pipelined = args.pipeline_parallel > 1
+    if pipelined:
+        mesh = make_pp_mesh(args.pipeline_parallel, device=device)
+        device = mesh.device
+    elif args.dist_processes > 1 or args.model_parallel > 1 or args.expert_parallel > 1:
         mesh = make_mesh(model_parallel=args.model_parallel, expert_parallel=args.expert_parallel,
                          device=device)
         device = mesh.device
@@ -457,14 +486,18 @@ def run(args, device: torch.device, t_main: float, argv) -> int:
         train_seed=args.seed,
     )
 
-    reject_unported(cfg)
+    (check_pp_config if pipelined else reject_unported)(cfg)
     if mesh is not None and args.batch_size % mesh.dp:
         print(f"error: --batch-size {args.batch_size} is the GLOBAL batch and must be divisible "
               f"by the data axis size {mesh.dp}", file=sys.stderr)
         return 2
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     say(f"device={device} ({name})", flush=True)
-    if mesh is not None:
+    if pipelined:
+        say(f"mesh: {mesh.world} processes on {mesh.hosts} host(s), data {mesh.dp} x pipe {mesh.pp} "
+            f"({mcfg.depth // mesh.pp} blocks a stage), {cfg.pp_microbatches or mesh.pp} microbatches, "
+            f"{args.batch_size // mesh.dp} rows a data rank", flush=True)
+    elif mesh is not None:
         say(f"mesh: {mesh.world} processes on {mesh.hosts} host(s), data {mesh.dp} x model "
             f"{mesh.tp} x expert {mesh.ep}, sequence_parallel={mcfg.sequence_parallel}, "
             f"{args.batch_size // mesh.dp} rows a data rank", flush=True)
@@ -524,7 +557,8 @@ def run(args, device: torch.device, t_main: float, argv) -> int:
     # -- state / resume -----------------------------------------------------
     if loader is not None and args.device_prefetch > 0:
         batches = DevicePrefetcher(batches, device=device, depth=args.device_prefetch)
-    state = create_train_state(cfg, seed=args.seed, device=device, mesh=mesh)
+    state = (create_pp_train_state if pipelined else create_train_state)(cfg, seed=args.seed,
+                                                                         device=device, mesh=mesh)
     start_step = 0
     if resume_dir is not None and (resume_dir / "ckpt").exists():
         t0 = time.monotonic()
@@ -552,7 +586,7 @@ def run(args, device: torch.device, t_main: float, argv) -> int:
             return start_epoch + n // per_epoch, n % per_epoch
     if mesh is not None and loader is None:  # synthetic batches are made whole on every rank
         batches = RankRows(batches, *batch_rows(mesh, args.batch_size))
-    step_fn = build_train_step(cfg, device=device, mesh=mesh)
+    step_fn = (build_pp_train_step if pipelined else build_train_step)(cfg, device=device, mesh=mesh)
     on_step = None
     if args.monitor_every > 0:
         on_step = monitor_hook(args, cfg, loader, writes=main_rank)

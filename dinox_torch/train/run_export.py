@@ -79,9 +79,10 @@ def load_backbone_from_run(run_dir: str | Path, step: Optional[int] = None,
         raise ValueError(f"source must be 'student' or 'teacher', got {source!r}")
     run_dir = Path(run_dir)
     cfg = train_config_from_run(run_dir)
-    if cfg.pipeline_parallel > 1:
-        raise NotImplementedError("pipeline-parallel run dirs are not ported to dinox_torch yet: "
-                                  "module 13b")
+    # A pipeline-parallel run's checkpoint needs no merge: the port's rank 0
+    # writes the one-process layout (parallel.pipeline.gather_stages). The
+    # JAX package merges the stacked {"rest", "blocks"} layout here only
+    # because its PP runs save that layout.
     mae = cfg.loss_type == "mae"  # the MAE student's backbone is its encoder
     prefix = f"{source}.encoder." if mae else f"{source}.backbone."
     arrays = load_file(_checkpoint_dir(run_dir, step) / STATE_FILE,

@@ -32,6 +32,7 @@ from dinox_torch.models.mae import MaeModel
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.ops.augment import AugConfig
 from dinox_torch.parallel.mesh import Mesh, shard_state
+from dinox_torch.parallel.pipeline import merge_model_params
 from dinox_torch.train.optim import DTYPES, build_adam
 from dinox_torch.train.schedule import get_lr
 from dinox_torch.utils.platform import resolve_device
@@ -92,11 +93,8 @@ class TrainConfig:
 
 
 def reject_unported(cfg: TrainConfig) -> None:
-    """Raise for the options the port does not have yet, naming the module
-    of the port's plan that brings each, and for unknown values."""
-    if cfg.pipeline_parallel > 1:
-        raise NotImplementedError(f"pipeline_parallel={cfg.pipeline_parallel!r} is not ported to "
-                                  "dinox_torch yet: module 13b")
+    """Raise for unknown option values (every option of the JAX package's
+    TrainConfig is ported)."""
     if cfg.loss_type not in ("dino", "simclr", "mae"):
         raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
     for field in ("mu_dtype", "nu_dtype"):
@@ -214,8 +212,23 @@ def state_from_jax(cfg: TrainConfig, tree: Mapping[str, Any],
     dense weight the port's ``(out, in)`` rows are JAX's columns, so JAX's
     ``r`` runs along the port's input axis). Moments are stored in
     ``mu_dtype``/``nu_dtype``. On a *mesh* the state is then cut to this
-    rank's shard, as :func:`create_train_state` cuts it."""
+    rank's shard, as :func:`create_train_state` cuts it.
+
+    A JAX pipeline-parallel state (``dinox_tpu.train.pp_step``: each tree
+    ``{"rest", "blocks"}`` with ``(S, blocks_per_stage, ...)`` block leaves)
+    is merged into the one-device layout first
+    (``parallel.pipeline.merge_model_params``). Its factored nu is refused:
+    the JAX PP state factors each stacked block leaf, so a stage's 1-D
+    parameters get ``r``/``c`` factors across its blocks where the
+    one-device state keeps them whole (a fault of that package)."""
     reject_unported(cfg)
+    if isinstance(tree["student"], Mapping) and set(tree["student"]) == {"rest", "blocks"}:
+        if cfg.factored_nu:
+            raise ValueError("the JAX pipeline-parallel state's factored nu is factored across the "
+                             "stacked (S, blocks_per_stage, ...) block leaves, so a stage's 1-D "
+                             "parameters carry r/c factors over its blocks where the one-device "
+                             "state keeps each moment whole; dinox_torch does not carry it across")
+        tree = {**tree, **{k: merge_model_params(tree[k]) for k in ("student", "teacher", "mu", "nu")}}
     dev = _device(device, mesh)
     student = _student(cfg, dev)
     student.load_state_dict(_tensors(cfg, tree["student"], dev), strict=True)

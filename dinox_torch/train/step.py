@@ -82,28 +82,12 @@ def _global_std(x: torch.Tensor, group: Group) -> torch.Tensor:
     return torch.sqrt(all_reduce(((x - mean) ** 2).mean(), group, "mean"))
 
 
-def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
-               batch: torch.Tensor, spacing: Optional[torch.Tensor], cfg: TrainConfig,
-               jitter: Optional[torch.Generator] = None,
-               mask_noise: Optional[torch.Tensor | torch.Generator] = None,
-               group: Group = None, rows: Optional[tuple[int, int, int]] = None
-               ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
-    """Loss over one augmented (2B, S, S, 3) micro-batch with spacing (B, 3).
-    *mask_noise* is MAE's (2B, L) noise or a generator to draw it from.
-    *group* is the data-parallel group the losses reduce over and *rows*
-    ``(lo, hi, global_batch)`` the rank's rows, at whose global shape the
-    jitter and the mask noise are drawn. Returns (loss, new centre, metrics)."""
-    zero = torch.zeros((), dtype=torch.float32, device=batch.device)
-    if cfg.loss_type == "mae":
-        if rows is not None and isinstance(mask_noise, torch.Generator):
-            n = 2 * rows[2], student.cfg.n_patches
-            mask_noise = torch.rand(n, generator=mask_noise)[_view_rows(rows)]
-        pred, mask = student(batch, mask_noise)
-        loss = mae_loss(pred, batch, mask, cfg.model.patch, group)
-        metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
-                       loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
-                       embed_std=_global_std(pred.detach().float(), group), loss=loss)
-        return loss, center, {k: v.detach() for k, v in metrics.items()}
+def view_spacing(spacing: Optional[torch.Tensor], cfg: TrainConfig,
+                 jitter: Optional[torch.Generator] = None,
+                 rows: Optional[tuple[int, int, int]] = None) -> Optional[torch.Tensor]:
+    """The (2B, 3) spacing of the ``[view1; view2]`` batch with the lognormal
+    ``spacing_jitter`` drawn from *jitter* (at the global shape on a mesh,
+    *rows* the rank's), or ``None`` for a model that is not scale-aware."""
     sp2 = torch.cat([spacing, spacing], dim=0) if cfg.model.scale_aware else None
     if sp2 is not None and cfg.spacing_jitter > 0:
         if rows is None:
@@ -111,8 +95,18 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
         else:
             noise = torch.randn((2 * rows[2], 3), generator=jitter)[_view_rows(rows)]
         sp2 = sp2 * torch.exp(cfg.spacing_jitter * noise.to(sp2.device))
+    return sp2
 
-    s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
+
+def objective(s_out: torch.Tensor, s_feats: torch.Tensor,
+              teacher_fn: Callable[[], tuple[torch.Tensor, torch.Tensor]], center: torch.Tensor,
+              cfg: TrainConfig, group: Group = None, moe_aux: Optional[torch.Tensor] = None
+              ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """The DINO (+ Gram + KoLeo) or SimCLR loss of the student's head output
+    and tokens: (loss, new centre, metrics). *teacher_fn()* gives the
+    teacher's (head output, tokens), asked for DINO only. The losses'
+    batch statistics reduce over *group*."""
+    zero = torch.zeros((), dtype=torch.float32, device=s_out.device)
     if cfg.loss_type == "simclr":
         b = s_out.shape[0] // 2
         loss = simclr_loss(s_out[:b], s_out[b:], cfg.student_temp, group)
@@ -120,8 +114,7 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
         metrics = dict(loss_simclr=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
                        loss_mae=zero, teacher_entropy=zero, student_entropy=zero)
     else:
-        with torch.no_grad():
-            t_out, t_feats = teacher.forward_features(batch, sp2)
+        t_out, t_feats = teacher_fn()
         d = dino_loss(s_out, t_out, center, student_temp=cfg.student_temp,
                       teacher_temp=cfg.teacher_temp, center_momentum=cfg.center_momentum,
                       group=group)
@@ -140,6 +133,38 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
     metrics["embed_std"] = torch.mean(torch.std(cls, dim=0, correction=0))
     metrics["loss"] = loss
     return loss, new_center, {k: v.detach() for k, v in metrics.items()}
+
+
+def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
+               batch: torch.Tensor, spacing: Optional[torch.Tensor], cfg: TrainConfig,
+               jitter: Optional[torch.Generator] = None,
+               mask_noise: Optional[torch.Tensor | torch.Generator] = None,
+               group: Group = None, rows: Optional[tuple[int, int, int]] = None
+               ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """Loss over one augmented (2B, S, S, 3) micro-batch with spacing (B, 3).
+    *mask_noise* is MAE's (2B, L) noise or a generator to draw it from.
+    *group* is the data-parallel group the losses reduce over and *rows*
+    ``(lo, hi, global_batch)`` the rank's rows, at whose global shape the
+    jitter and the mask noise are drawn. Returns (loss, new centre, metrics)."""
+    if cfg.loss_type == "mae":
+        zero = torch.zeros((), dtype=torch.float32, device=batch.device)
+        if rows is not None and isinstance(mask_noise, torch.Generator):
+            n = 2 * rows[2], student.cfg.n_patches
+            mask_noise = torch.rand(n, generator=mask_noise)[_view_rows(rows)]
+        pred, mask = student(batch, mask_noise)
+        loss = mae_loss(pred, batch, mask, cfg.model.patch, group)
+        metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
+                       loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
+                       embed_std=_global_std(pred.detach().float(), group), loss=loss)
+        return loss, center, {k: v.detach() for k, v in metrics.items()}
+    sp2 = view_spacing(spacing, cfg, jitter, rows)
+    s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
+
+    def teacher_fn() -> tuple[torch.Tensor, torch.Tensor]:
+        with torch.no_grad():
+            return teacher.forward_features(batch, sp2)
+
+    return objective(s_out, s_feats, teacher_fn, center, cfg, group, moe_aux)
 
 
 def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.Tensor,
@@ -198,6 +223,8 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
     are the rank's rows of the global batch (``parallel.mesh.batch_rows``)
     and *state* is on the mesh (``create_train_state(..., mesh=)``)."""
     reject_unported(cfg)
+    if mesh is not None and mesh.pp > 1:
+        raise ValueError("a (data, pipe) mesh trains through train.pp_step.build_pp_train_step")
     dev = resolve_device(mesh.device if device is None and mesh is not None else device)
     augment = augment_views if augment_fn is None else augment_fn
     aug_cfg = cfg.aug

@@ -9,8 +9,8 @@ pydantic, PyYAML or pyarrow (the GPU machine has none of them): the CIFAR
 control, the DICOM/NIfTI readers and preprocessing CLIs, the MoE and MAE
 models, the optimizer-memory options, the monitor, the scale and MoE
 benches, module 12's provenance layer, release staging and canary,
-module 12b's run and bench tooling, and module 13a's mesh and collectives
-(``dinox_torch.parallel``) included. TensorBoard
+module 12b's run and bench tooling, and module 13's mesh, collectives and
+pipeline (``dinox_torch.parallel``, ``train.pp_step``) included. TensorBoard
 (``torch.utils.tensorboard``, absent on some GPU machines) is imported only
 inside functions. Checked on the source with an AST scan."""
 
@@ -86,7 +86,8 @@ def test_scan_sees_the_package():
                 "compare_runs", "log_runs", "soak_seam_analysis", "diagnose_scale_pathway",
                 "round5_data_probe", "round5_patch_probe", "bench_batch_sweep", "tune_throughput",
                 "ablation_lora_lidc")),
-            *(f"dinox_torch/parallel/{m}.py" for m in ("__init__", "mesh", "collectives"))} <= names
+            *(f"dinox_torch/parallel/{m}.py" for m in ("__init__", "mesh", "collectives", "pipeline")),
+            "dinox_torch/train/pp_step.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

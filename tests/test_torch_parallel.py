@@ -44,7 +44,7 @@ from dinox_torch.models.config import ModelConfig
 from dinox_torch.models.moe import MoeMlp
 from dinox_torch.models.mae import mae_loss
 from dinox_torch.ops.flash_attention import flash_attention_packed_sharded
-from dinox_torch.parallel import Mesh, batch_rows, make_mesh, tp_param_spec
+from dinox_torch.parallel import Mesh, batch_rows, make_mesh, make_pp_mesh, tp_param_spec
 from dinox_torch.parallel.mesh import cut, join
 from dinox_torch.train import losses as t_losses
 from dinox_torch.train.state import TrainConfig, state_from_jax
@@ -566,16 +566,16 @@ def test_tp_param_spec_cuts_and_joins():
 
 @pytest.mark.parametrize("what", ["expert", "pipeline"])
 def test_module_13b_raises(what):
-    """Expert parallelism is refused, as the JAX make_mesh refuses it, on a
-    world that does not divide by model_parallel x expert_parallel (one
-    process here); pipeline parallelism stays for module 13b."""
+    """Expert and pipeline parallelism are refused, as the JAX make_mesh and
+    make_pp_mesh refuse them, on a world that does not divide by
+    model_parallel x expert_parallel or by pp (one process here)."""
     if what == "expert":
         with pytest.raises(ValueError, match="1 processes not divisible by model_parallel=1 x "
                                              "expert_parallel=2"):
             make_mesh(expert_parallel=2, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="module 13b"):
-        build_train_step(TrainConfig(model=ModelConfig(**MODEL), pipeline_parallel=2), device="cpu")
+    with pytest.raises(ValueError, match="1 processes not divisible by pp=2"):
+        make_pp_mesh(2, device="cpu")
 
 
 def test_one_process_mesh_refuses_model_parallel():

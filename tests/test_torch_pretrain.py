@@ -133,15 +133,22 @@ UNPORTED = [
     (["--loss-type", "mae"], "module 11"), (["--mu-dtype", "bfloat16"], "module 11"),
     (["--nu-dtype", "bfloat16"], "module 11"), (["--factored-nu"], "module 11"),
     (["--monitor-every", "5"], "module 11"),
+    (["--pipeline-parallel", "2", "--model-parallel", "2"], "exit 2"),
+    (["--pipeline-parallel", "2", "--expert-parallel", "2", "--moe-experts", "2"], "exit 2"),
+    (["--pipeline-parallel", "2", "--monitor-every", "5"], "exit 2"),
 ]
 
 
 @pytest.mark.parametrize("flags,module", UNPORTED, ids=[" ".join(f) for f, _ in UNPORTED])
-def test_unported_flags_raise(tmp_path, flags, module):
-    """--pipeline-parallel (module 13b's last part) raises before anything
-    is written; --expert-parallel 2 without --moe-experts divisible by it
-    exits 2 before anything is written (the reference's help text asks for
-    it; its mesh fails only later). Module 13a's do
+def test_unported_flags_raise(tmp_path, capsys, flags, module):
+    """--pipeline-parallel 2 (module 13b's last part) on one process is
+    refused by make_pp_mesh, as the JAX make_pp_mesh refuses it on one
+    device, before anything is written; with --model-parallel it exits 2
+    with the reference's message, and with --expert-parallel or
+    --monitor-every (which the (data, pipe) mesh and a rank's one stage do
+    not take) it exits 2 too; --expert-parallel 2 without --moe-experts
+    divisible by it exits 2 before anything is written (the reference's help
+    text asks for it; its mesh fails only later). Module 13a's do
     what they now do, in process and on one process, contacting no
     coordinator: --model-parallel 2 is refused as make_mesh refuses it on
     one device, --dist-processes 2 without a coordinator and a process id is
@@ -153,14 +160,12 @@ def test_unported_flags_raise(tmp_path, flags, module):
     if module == "exit 2":
         assert pretrain.main(argv) == 2
         assert not (tmp_path / "run").exists()
-        return
-    if module == "module 13b":
-        with pytest.raises(NotImplementedError, match=module):
-            pretrain.main(argv)
-        assert not (tmp_path / "run").exists()
+        if flags[0] == "--pipeline-parallel":
+            assert f"--pipeline-parallel and {flags[2]} are mutually exclusive" in capsys.readouterr().err
         return
     refused = {"--model-parallel": "not divisible by model_parallel=2",
-               "--dist-processes": "--dist-coordinator"}
+               "--dist-processes": "--dist-coordinator",
+               "--pipeline-parallel": "1 processes not divisible by pp=2"}
     if flags[0] in refused:
         with pytest.raises(ValueError, match=refused[flags[0]]):
             pretrain.main(argv)

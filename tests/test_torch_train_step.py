@@ -18,6 +18,8 @@ import pytest
 import torch
 
 from dinox_torch.models.config import ModelConfig
+from dinox_torch.parallel import Mesh
+from dinox_torch.train.pp_step import build_pp_train_step
 from dinox_torch.train.state import TrainConfig, create_train_state, state_from_jax
 from dinox_torch.train.step import METRICS, build_train_step, micro_loss_and_grads
 from dinox_torch.zoo.interop import jax_to_torch_student
@@ -234,14 +236,22 @@ def test_step_wants_a_card_unless_asked_for_the_cpu():
                                 dict(mu_dtype="bfloat16"), dict(nu_dtype="bfloat16"),
                                 dict(pipeline_parallel=2)])
 def test_unported_options_raise(kw):
-    """Pipeline parallelism (module 13) still raises. MAE and the
-    optimizer-memory options (module 11) are ported now: a step runs and
-    stays finite (their parity with JAX is in test_torch_mae.py and
-    test_torch_optim.py)."""
+    """Pipeline parallelism (module 13b-3) is ported: its step refuses, with
+    the reference's ValueError, accumulation, MAE and LoRA (its parity with
+    JAX is in test_torch_pipeline.py), and the step without a pipe axis
+    refuses a (data, pipe) mesh. MAE and the optimizer-memory options
+    (module 11) are ported: a step runs and stays finite (their parity with
+    JAX is in test_torch_mae.py and test_torch_optim.py)."""
     _, tcfg = _configs(**kw)
     if kw.get("pipeline_parallel"):
-        with pytest.raises(NotImplementedError, match="module 13"):
-            build_train_step(tcfg, device="cpu")
+        mesh = Mesh(2, 0, 1, 1, None, None, torch.device("cpu"), pp=2)
+        for bad, msg in ((dict(accumulation_steps=2), "folds accumulation into microbatches"),
+                         (dict(loss_type="mae"), "supports dino/simclr, not mae"),
+                         (dict(model=tcfg.model.replace(lora_rank=4)), "LoRA fine-tunes are single-stage")):
+            with pytest.raises(ValueError, match=msg):
+                build_pp_train_step(tcfg.replace(**bad), device="cpu", mesh=mesh)
+        with pytest.raises(ValueError, match="build_pp_train_step"):
+            build_train_step(tcfg, device="cpu", mesh=mesh)
         return
     state = create_train_state(tcfg, device="cpu")
     px, sp = _batch(1, seed=8)
