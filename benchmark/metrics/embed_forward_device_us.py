@@ -1,0 +1,9 @@
+"""embed_forward_device_us: device us per slice embedded of the work launched
+under ``dinox.embed.forward`` (the inference backbone forward), in the
+traced sub-window (``harness.spans``)."""
+
+from harness import spans
+
+
+def read(run):
+    return spans.embed_device_us(run, "forward")

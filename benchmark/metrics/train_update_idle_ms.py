@@ -1,0 +1,9 @@
+"""train_update_idle_ms: device idle ms per optimizer step at the gaps whose
+midpoint lies in ``dinox.train.update``, in the traced sub-window
+(``harness.spans``)."""
+
+from harness import spans
+
+
+def read(run):
+    return spans.train_idle_ms(run, "update")

@@ -44,6 +44,7 @@ from dinox_torch.data.hu import (
     RW_WIDTH_MAX,
     RW_WIDTH_MIN,
 )
+from dinox_torch.utils.tracing import span
 
 _CROP_ATTEMPTS = 10
 
@@ -218,21 +219,22 @@ def eval_transform(pixels: torch.Tensor, img_size: int = 224, level: float = EVA
     cubic, float32 products), the long side centre-cropped, ImageNet
     normalisation. (B, H, W, 3) uint16 -> (B, S, S, 3) float32, on pixels'
     device."""
-    x = decode_window(pixels, level, width)
-    b, h, w, c = x.shape
-    scale = img_size / min(h, w)
-    nh, nw = round(h * scale), round(w * scale)
-    top, left = (nh - img_size) // 2, (nw - img_size) // 2
+    with span("dinox.embed.transform"):
+        x = decode_window(pixels, level, width)
+        b, h, w, c = x.shape
+        scale = img_size / min(h, w)
+        nh, nw = round(h * scale), round(w * scale)
+        top, left = (nh - img_size) // 2, (nw - img_size) // 2
 
-    def weights(size: int, out: int, first: int) -> torch.Tensor:
-        # jax.image.resize takes 1 / scale in double precision on the host.
-        inv = 1.0 / (out / size)
-        sample_f = (torch.arange(first, first + img_size, dtype=torch.float32, device=x.device)
-                    + 0.5) * inv - 0.5
-        kernel_scale = torch.full((1,), max(inv, 1.0), dtype=torch.float32, device=x.device)
-        return _keys_weights(size, sample_f[None], kernel_scale)[0]  # (S, size)
+        def weights(size: int, out: int, first: int) -> torch.Tensor:
+            # jax.image.resize takes 1 / scale in double precision on the host.
+            inv = 1.0 / (out / size)
+            sample_f = (torch.arange(first, first + img_size, dtype=torch.float32, device=x.device)
+                        + 0.5) * inv - 0.5
+            kernel_scale = torch.full((1,), max(inv, 1.0), dtype=torch.float32, device=x.device)
+            return _keys_weights(size, sample_f[None], kernel_scale)[0]  # (S, size)
 
-    rows, cols = weights(h, nh, top), weights(w, nw, left)
-    t = torch.matmul(rows, x.reshape(b, h, w * c)).view(b, img_size, w, c)  # (B, S, W, C)
-    o = torch.matmul(cols, t.transpose(1, 2).reshape(b, w, img_size * c))  # (B, S_col, S_row*C)
-    return normalize_imagenet(o.view(b, img_size, img_size, c).transpose(1, 2))
+        rows, cols = weights(h, nh, top), weights(w, nw, left)
+        t = torch.matmul(rows, x.reshape(b, h, w * c)).view(b, img_size, w, c)  # (B, S, W, C)
+        o = torch.matmul(cols, t.transpose(1, 2).reshape(b, w, img_size * c))  # (B, S_col, S_row*C)
+        return normalize_imagenet(o.view(b, img_size, img_size, c).transpose(1, 2))

@@ -17,6 +17,12 @@ the teacher routes too, but its loss is not used. MAE
 (no teacher forward, no EMA), with ``embed_std`` the std of its
 prediction.
 
+Each phase runs under a profiler span (``utils.tracing``):
+``dinox.train.step`` around the whole step; per micro-step ``augment``,
+``student``, ``loss`` (the teacher's forward nested in it as ``teacher``)
+and ``backward``; ``update`` at each accumulation and after the
+micro-steps, with ``reduce`` nested in it on a mesh.
+
 Randomness: a CPU ``torch.Generator`` per (train_seed, step, micro-batch)
 for the augmentation, another for the spacing jitter and a third for the
 MAE mask noise.
@@ -62,6 +68,7 @@ from dinox_torch.train.state import (
 )
 from dinox_torch.utils.platform import resolve_device
 from dinox_torch.utils.rng import seeded_generator
+from dinox_torch.utils.tracing import span
 
 METRICS = ("loss", "loss_dino", "loss_gram", "loss_koleo", "loss_simclr", "loss_mae",
            "teacher_entropy", "student_entropy", "embed_std", "grad_norm", "lr")
@@ -147,24 +154,28 @@ def micro_loss(student: Student, teacher: Student, center: torch.Tensor,
     ``(lo, hi, global_batch)`` the rank's rows, at whose global shape the
     jitter and the mask noise are drawn. Returns (loss, new centre, metrics)."""
     if cfg.loss_type == "mae":
-        zero = torch.zeros((), dtype=torch.float32, device=batch.device)
-        if rows is not None and isinstance(mask_noise, torch.Generator):
-            n = 2 * rows[2], student.cfg.n_patches
-            mask_noise = torch.rand(n, generator=mask_noise)[_view_rows(rows)]
-        pred, mask = student(batch, mask_noise)
-        loss = mae_loss(pred, batch, mask, cfg.model.patch, group)
-        metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
-                       loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
-                       embed_std=_global_std(pred.detach().float(), group), loss=loss)
-        return loss, center, {k: v.detach() for k, v in metrics.items()}
-    sp2 = view_spacing(spacing, cfg, jitter, rows)
-    s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
+        with span("dinox.train.student"):
+            if rows is not None and isinstance(mask_noise, torch.Generator):
+                n = 2 * rows[2], student.cfg.n_patches
+                mask_noise = torch.rand(n, generator=mask_noise)[_view_rows(rows)]
+            pred, mask = student(batch, mask_noise)
+        with span("dinox.train.loss"):
+            zero = torch.zeros((), dtype=torch.float32, device=batch.device)
+            loss = mae_loss(pred, batch, mask, cfg.model.patch, group)
+            metrics = dict(loss_mae=loss, loss_dino=zero, loss_gram=zero, loss_koleo=zero,
+                           loss_simclr=zero, teacher_entropy=zero, student_entropy=zero,
+                           embed_std=_global_std(pred.detach().float(), group), loss=loss)
+            return loss, center, {k: v.detach() for k, v in metrics.items()}
+    with span("dinox.train.student"):
+        sp2 = view_spacing(spacing, cfg, jitter, rows)
+        s_out, s_feats, moe_aux = student.forward_features_aux(batch, sp2)
 
     def teacher_fn() -> tuple[torch.Tensor, torch.Tensor]:
-        with torch.no_grad():
+        with span("dinox.train.teacher"), torch.no_grad():
             return teacher.forward_features(batch, sp2)
 
-    return objective(s_out, s_feats, teacher_fn, center, cfg, group, moe_aux)
+    with span("dinox.train.loss"):
+        return objective(s_out, s_feats, teacher_fn, center, cfg, group, moe_aux)
 
 
 def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.Tensor,
@@ -180,9 +191,10 @@ def micro_loss_and_grads(state: TrainState, center: torch.Tensor, batch: torch.T
     params = list(state.student.parameters())
     loss, new_center, metrics = micro_loss(state.student, state.teacher, center, batch, spacing,
                                            cfg, jitter, mask_noise, group, rows)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    return grads, new_center.detach(), metrics
+    with span("dinox.train.backward"):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return grads, new_center.detach(), metrics
 
 
 def _model_group_shares(student: Student, sequence_parallel: bool) -> list[int]:
@@ -231,45 +243,57 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
     group = None if mesh is None else mesh.data_group
 
     def step_fn(state: TrainState, pixels, spacing):
-        pixels = torch.as_tensor(pixels, device=dev)
-        spacing = torch.as_tensor(spacing, dtype=torch.float32, device=dev)
+        with span("dinox.train.step"):
+            return _step(state, pixels, spacing)
+
+    def _reduce(state: TrainState, grads: list[torch.Tensor], metrics: dict[str, torch.Tensor]):
+        grads = all_reduce_bucket(grads, group, "mean")
+        shares = _model_group_shares(state.student, cfg.model.sequence_parallel) if mesh.tp > 1 else []
+        if shares:
+            for i, g in zip(shares, all_reduce_bucket([grads[i] for i in shares], mesh.model_group)):
+                grads[i] = g
+        keys = sorted(metrics)
+        means = all_reduce(torch.stack([metrics[k] for k in keys]), group, "mean")
+        return grads, dict(zip(keys, means.unbind(0)))
+
+    def _step(state: TrainState, pixels, spacing):
         accum, b = pixels.shape[:2]
         rows = None if mesh is None else (mesh.dp_rank * b, (mesh.dp_rank + 1) * b, b * mesh.dp)
         state.student.train()
         grads, center, seq = None, state.center, []
         for a in range(accum):
-            gen = seeded_generator(cfg.train_seed, state.step, a, 0)
-            views = augment(pixels[a], gen, aug_cfg, **({} if rows is None else {"rows": rows}))
-            batch = views.reshape((-1,) + tuple(views.shape[2:]))
-            g, center, metrics = micro_loss_and_grads(
-                state, center, batch, spacing[a], cfg, seeded_generator(cfg.train_seed, state.step, a, 1),
-                seeded_generator(cfg.train_seed, state.step, a, 2), group, rows)
-            grads = g if grads is None else torch._foreach_add(grads, g)
+            with span("dinox.train.augment"):
+                gen, jitter, noise = (seeded_generator(cfg.train_seed, state.step, a, k) for k in range(3))
+                views = augment(torch.as_tensor(pixels[a], device=dev), gen, aug_cfg,
+                                **({} if rows is None else {"rows": rows}))
+                batch = views.reshape((-1,) + tuple(views.shape[2:]))
+                sp = torch.as_tensor(spacing[a], dtype=torch.float32, device=dev)
+            g, center, metrics = micro_loss_and_grads(state, center, batch, sp, cfg, jitter, noise, group, rows)
             seq.append(metrics)
-        if accum > 1:
-            grads = torch._foreach_div(grads, float(accum))
-            metrics = {k: torch.stack([m[k] for m in seq]).mean() for k in seq[0]}
-        if mesh is not None:
-            grads = all_reduce_bucket(grads, group, "mean")
-            shares = _model_group_shares(state.student, cfg.model.sequence_parallel) if mesh.tp > 1 else []
-            if shares:
-                for i, g in zip(shares, all_reduce_bucket([grads[i] for i in shares], mesh.model_group)):
-                    grads[i] = g
-            keys = sorted(metrics)
-            means = all_reduce(torch.stack([metrics[k] for k in keys]), group, "mean")
-            metrics = dict(zip(keys, means.unbind(0)))
-        metrics["grad_norm"] = _grad_norm(state.student, grads, mesh)
+            if grads is None:
+                grads = g
+            else:
+                with span("dinox.train.update"):
+                    grads = torch._foreach_add(grads, g)
+        with span("dinox.train.update"):
+            if accum > 1:
+                grads = torch._foreach_div(grads, float(accum))
+                metrics = {k: torch.stack([m[k] for m in seq]).mean() for k in seq[0]}
+            if mesh is not None:
+                with span("dinox.train.reduce"):
+                    grads, metrics = _reduce(state, grads, metrics)
+            metrics["grad_norm"] = _grad_norm(state.student, grads, mesh)
 
-        params = list(state.student.parameters())
-        apply_gradients(cfg, state.optimizer, params, grads, state.step)
+            params = list(state.student.parameters())
+            apply_gradients(cfg, state.optimizer, params, grads, state.step)
 
-        if cfg.loss_type == "dino":  # EMA from the updated student
-            with torch.no_grad():
-                t_params = list(state.teacher.parameters())
-                torch._foreach_mul_(t_params, cfg.ema)
-                torch._foreach_add_(t_params, params, alpha=1.0 - cfg.ema)
-        metrics["lr"] = get_lr_tensor(torch.tensor(state.step, device=dev), cfg.max_steps,
-                                      cfg.warmup_steps, cfg.lr, cfg.min_lr)
+            if cfg.loss_type == "dino":  # EMA from the updated student
+                with torch.no_grad():
+                    t_params = list(state.teacher.parameters())
+                    torch._foreach_mul_(t_params, cfg.ema)
+                    torch._foreach_add_(t_params, params, alpha=1.0 - cfg.ema)
+            metrics["lr"] = get_lr_tensor(torch.tensor(state.step, device=dev), cfg.max_steps,
+                                          cfg.warmup_steps, cfg.lr, cfg.min_lr)
         state.center = center
         state.step += 1
         return state, metrics

@@ -24,6 +24,7 @@ import torch
 from dinox_torch.models.config import HUB_DEFAULT_CONFIG, ModelConfig
 from dinox_torch.models.vit import PatchViT
 from dinox_torch.utils.platform import resolve_device
+from dinox_torch.utils.tracing import span
 from dinox_torch.zoo import safetensors_io
 from dinox_torch.zoo.interop import (
     jax_to_torch_backbone,
@@ -80,7 +81,8 @@ class LoadedModel(DeviceViT):
 
     @torch.inference_mode()
     def forward(self, x, spacing=None) -> torch.Tensor:
-        return super().forward(x, spacing)
+        with span("dinox.embed.forward"):
+            return super().forward(x, spacing)
 
 
 def _cfg_from_dict(config: dict[str, Any]) -> ModelConfig:
