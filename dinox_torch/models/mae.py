@@ -109,7 +109,7 @@ class MaeDecoder(nn.Module):
         x = torch.cat([x[:, :1], body], dim=1) + self.pos.to(dt)
         for blk in self.blocks:
             x = blk(x)
-        x = self.decoder_pred(self.decoder_norm(x.float()))
+        x = self.decoder_pred(self.decoder_norm(x))
         return x[:, 1:]
 
 

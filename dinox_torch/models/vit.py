@@ -11,7 +11,9 @@ rounding points:
   bias in that dtype (``F.linear`` would add it before rounding).
 * LayerNorms take float32 statistics with the fast variance
   E[x^2] - E[x]^2 clipped at 0 (flax's default). Block and ScaleEmbedding
-  norms output the compute dtype; the final norm is float32.
+  norms output the compute dtype; the final norm is float32. On a card
+  they run the LayerNorm kernels (``ops.layer_norm``), on the CPU the
+  plain version.
 * The MLP's GELU follows ``cfg.gelu_approx`` (tanh by default);
   ScaleEmbedding always uses the exact erf GELU.
 * Patch embedding is unfold + matmul on NHWC input, the same function as the
@@ -102,6 +104,7 @@ from dinox_torch.ops.flash_attention import (
 from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
 from dinox_torch.ops.fused_mlp import fused_mlp_block
+from dinox_torch.ops.layer_norm import layer_norm
 from dinox_torch.parallel.mesh import cut
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -183,7 +186,8 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax LayerNorm: float32 fast-variance statistics, output in ``out_dtype``."""
+    """flax LayerNorm: float32 fast-variance statistics, output in ``out_dtype``
+    (``ops.layer_norm``: the kernels on a card, the plain version on the CPU)."""
 
     def __init__(self, dim: int, out_dtype: torch.dtype, eps: float = 1e-5):
         super().__init__()
@@ -193,11 +197,7 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(self.out_dtype)
+        return layer_norm(x, self.weight, self.bias, self.out_dtype, self.eps)
 
 
 class PatchEmbed(nn.Module):
@@ -587,7 +587,7 @@ class PatchViT(nn.Module):
             blk.fused_attn = takes_fused_attn(blk.cfg, blk.mesh)
 
     def run_final_norm(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x.float())
+        return self.norm(x)
 
     def forward(self, x: torch.Tensor, spacing: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.forward_with_aux(x, spacing)[0]

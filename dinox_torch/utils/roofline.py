@@ -129,6 +129,24 @@ def fused_mlp_bwd_parts_work(rows: int, dim: int, hidden: int, chunks: int,
     }
 
 
+def layer_norm_fwd_work(rows: int, dim: int, x_bytes: int = BF16, y_bytes: int = BF16,
+                        stats: bool = True) -> tuple[float, float]:
+    """The port's LayerNorm forward (``ops.layer_norm``): x, gamma, beta in;
+    y out, and each row's f32 mean and rstd where a backward follows.
+    Memory bounds it; the operations counted are ~8 a column."""
+    return (rows * dim * (x_bytes + y_bytes) + F32 * 2 * dim + (F32 * 2 * rows if stats else 0),
+            8.0 * rows * dim)
+
+
+def layer_norm_bwd_work(rows: int, dim: int, x_bytes: int = BF16, dy_bytes: int = BF16
+                        ) -> tuple[float, float]:
+    """Its backward, both launches as one function: x, dy, gamma and the
+    rows' mean and rstd in; dx, dgamma and dbeta out (the per-CTA partial
+    sums between the launches are not the function's bytes)."""
+    return (rows * dim * (2 * x_bytes + dy_bytes) + F32 * 2 * rows + F32 * 3 * dim,
+            14.0 * rows * dim)
+
+
 def tpu_kernel_bounds(peaks: tuple[float, float], views: int = 192, n: int = 261,
                       dim: int = 384, heads: int = 6, mlp_ratio: float = 4.0,
                       giant: tuple[int, int, int, int] = (2, 261, 1408, 16)) -> list[dict]:

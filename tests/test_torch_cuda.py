@@ -24,7 +24,10 @@ row of bench_batch_sweep and one tune_throughput cell at ViT-S on the card,
 each with exact launches of kernels 1, dq and dkv; and module 13a: kernel 1
 and the pair at the blocks a rank of the ViT-S bs96 mesh step runs; and
 module 13b: the pair at a tp 2 x ep 2 rank's block, and a world-1 NCCL
-MoE mesh step bit-equal to the step without a mesh.
+MoE mesh step bit-equal to the step without a mesh; and the LayerNorm
+kernels against their plain versions at the training cells' rows and the
+ragged edges, equal bits on two runs, exact launches, and a ViT-S training
+micro-step through them against the eager LayerNorm.
 
 They are marked ``cuda`` and skip without a card. This file imports no JAX,
 so it runs on the GPU machine, from the repository root, with:
@@ -43,6 +46,7 @@ from dinox_torch.models.config import MODEL_CONFIGS
 from dinox_torch.models.vit import sdpa
 from dinox_torch.ops import _build
 from dinox_torch.ops import fused_mlp as fm
+from dinox_torch.ops import layer_norm as lnk
 from dinox_torch.ops.augment import augment_views
 from dinox_torch.ops.flash_attention import (
     flash_attention,
@@ -1114,3 +1118,195 @@ def test_tune_throughput_cell_on_the_card(card, tmp_path):
     assert rec["status"] == "ok" and rec["bound"] == "compute_bound"
     assert [c.launches - b for c, b in zip(counters, before)] == [3 * 2 * depth, 3 * depth, 3 * depth]
     assert 0 < rec["peak_bytes_in_use"] <= torch.cuda.get_device_properties(0).total_memory
+
+
+# -- the LayerNorm kernels (ops/layer_norm.py, csrc/layer_norm.cu) ---------------
+
+# (rows, C): the ViT-S and ViT-L training cells' rows (128 and 64 slices x 2
+# views x 261 tokens), then the ragged edges: one row, rows that do not fill
+# the last CTA (16 rows a CTA at C 384, 8 at 1024, 256 at 8, 1 at 8192),
+# C = 8 and 8192, ViT-G's 1408 (a row over two warps) and ViT-T's 192.
+LN_SHAPES = [(66816, 384), (33408, 1024)]
+LN_EDGES = [(1, 384), (17, 384), (9, 1024), (300, 8), (3, 8192), (77, 1408), (5, 192)]
+# (x, y) dtypes, the pairs the kernels take: the block and ScaleEmbedding
+# norms, a float32 model's norms, the final and the MAE decoder norm.
+LN_PATHS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+            (torch.bfloat16, torch.float32)]
+
+
+def _ln_inputs(card, rows, c, x_dtype, y_dtype):
+    x = (torch.randn((rows, c), generator=card, device="cuda") * 2.0 + 0.5).to(x_dtype)
+    w = 1.0 + 0.1 * torch.randn(c, generator=card, device="cuda")
+    b = 0.1 * torch.randn(c, generator=card, device="cuda")
+    dy = torch.randn((rows, c), generator=card, device="cuda").to(y_dtype)
+    return x, w, b, dy
+
+
+def _ln_kernels(x, w, b, dy, y_dtype):
+    """y, dx, dgamma, dbeta through the kernels' autograd function."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, w, b)]
+    y = lnk.layer_norm(*leaves, y_dtype)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+def _ln_close(got, want, atol):
+    """Within one unit in the last place of *want*'s value in *got*'s dtype
+    (2^-7 of its binade in bf16, 2^-23 in f32), plus *atol*."""
+    want = want.to(got.dtype).float()
+    bits = 7 if got.dtype == torch.bfloat16 else 23
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - bits)
+    err = (got.float() - want).abs()
+    assert torch.all(err <= ulp + atol), (err - ulp).max().item()
+
+
+def _ln_check(card, rows, c, x_dtype, y_dtype):
+    """The kernels against the plain versions on the card. y: 1 ulp and
+    2e-6 (the statistics' sums in another order move an f32 value near 0 by
+    more than a bf16 ulp). dx: 1 ulp and 1e-5 of the largest (the row sums
+    in another order); dgamma and dbeta: 1e-4 of the largest (f32 sums of up
+    to 66,816 rows in another order)."""
+    x, w, b, dy = _ln_inputs(card, rows, c, x_dtype, y_dtype)
+    y, dx, dw, db = _ln_kernels(x, w, b, dy, y_dtype)
+    assert y.dtype == y_dtype and dx.dtype == x_dtype and dw.dtype == db.dtype == torch.float32
+    _ln_close(y, lnk.layer_norm_reference(x, w, b, y_dtype), 2e-6)
+    want_dx, want_dw, want_db = lnk.layer_norm_backward_reference(x, w, dy)
+    _ln_close(dx, want_dx, 1e-5 * want_dx.float().abs().max().item())
+    for got, want in ((dw, want_dw), (db, want_db)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("path", LN_PATHS, ids=["bf16", "f32", "bf16-f32"])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layer_norm_matches_plain_at_the_cells_rows(card, shape, path):
+    _ln_check(card, *shape, *path)
+
+
+@pytest.mark.parametrize("shape", LN_EDGES)
+def test_layer_norm_ragged_edges_match_plain(card, shape):
+    for path in LN_PATHS:
+        _ln_check(card, *shape, *path)
+
+
+@pytest.mark.parametrize("shape", LN_SHAPES + LN_EDGES[:2])
+def test_layer_norm_repeats_bit_for_bit(card, shape):
+    args = _ln_inputs(card, *shape, torch.bfloat16, torch.bfloat16)
+    first, again = (_ln_kernels(*args, torch.bfloat16) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("path", LN_PATHS[::2], ids=["bf16", "bf16-f32"])
+def test_layer_norm_without_a_gradient_matches_plain(card, path):
+    """The forward alone, with no statistics written, as every embedding
+    batch runs it (inference_mode, an embed batch's 64 x 261 rows of 384):
+    the plain version's values within 1 ulp and 2e-6, and the same bits as
+    the forward that writes the statistics for a backward."""
+    x, w, b, dy = _ln_inputs(card, 64 * 261, 384, *path)
+    with torch.inference_mode():
+        y = lnk.layer_norm(x, w, b, path[1])
+    _ln_close(y, lnk.layer_norm_reference(x, w, b, path[1]), 2e-6)
+    assert torch.equal(y, _ln_kernels(x, w, b, dy, path[1])[0])
+
+
+def test_layer_norm_clamped_rows_drop_the_variance_term(card):
+    """Constant float32 rows, some of whose fast variance rounds below 0 in
+    the kernel (rstd saved negated): dx from the kernel's own statistics as
+    the plain backward's formula gives it, rstd (dxh - mean(dxh)) where
+    clamped. (Against the eager formula's own statistics a constant row
+    cannot be held: E[x^2] - E[x]^2 of a row of 9.7 is a few ulps of 94,
+    as large as eps, so each order of summation gives its own rstd.)"""
+    rows, c = 256, 384
+    x = torch.linspace(0.3, 9.7, rows, device="cuda")[:, None].expand(rows, c).contiguous()
+    x[::2] += torch.randn((rows // 2, c), generator=card, device="cuda")
+    w = 1.0 + 0.1 * torch.randn(c, generator=card, device="cuda")
+    b = torch.zeros(c, device="cuda")
+    dy = torch.randn((rows, c), generator=card, device="cuda")
+    stats = torch.empty((2, rows), device="cuda")
+    lnk.layer_norm_fwd(x, w, b, torch.empty_like(x), stats)
+    mean, rs = stats[0][:, None], stats[1][:, None]
+    assert (rs[1::2] < 0).any() and (rs[1::2] > 0).any() and (rs[::2] > 0).all()
+    grid = lnk.backward_grid(rows, c, x.dtype, dy.dtype)
+    dx, part = torch.empty_like(x), torch.empty((grid, 2 * c), device="cuda")
+    lnk.layer_norm_bwd(x, w, dy, stats, dx, part, grid)
+    r = rs.abs()
+    xhat, dxh = (x - mean) * r, dy * w
+    a2 = torch.where(rs < 0, 0.0, (dxh * xhat).mean(dim=-1, keepdim=True))
+    want = r * (dxh - dxh.mean(dim=-1, keepdim=True) - xhat * a2)
+    assert (dx - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_layer_norm_launches(card):
+    """One forward launch a call; with a gradient the dx launch and the
+    parameters' launch; with x's gradient alone (frozen norms) no parameters'
+    launch; under no_grad nothing saved."""
+    x, w, b, dy = _ln_inputs(card, 100, 384, torch.bfloat16, torch.bfloat16)
+    fns = (lnk.layer_norm_fwd, lnk.layer_norm_bwd, lnk.layer_norm_bwd_params)
+    before = [f.launches for f in fns]
+    with torch.no_grad():
+        y = lnk.layer_norm(x, w, b, torch.bfloat16)
+    assert y.grad_fn is None and [f.launches - n for f, n in zip(fns, before)] == [1, 0, 0]
+    _ln_kernels(x, w, b, dy, torch.bfloat16)
+    assert [f.launches - n for f, n in zip(fns, before)] == [2, 1, 1]
+    xr = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(lnk.layer_norm(xr, w, b, torch.bfloat16), xr, dy)
+    assert [f.launches - n for f, n in zip(fns, before)] == [3, 2, 1]
+    assert torch.equal(dx, _ln_kernels(x, w, b, dy, torch.bfloat16)[1])
+
+
+def test_layer_norm_takes_a_non_contiguous_chunk(card):
+    """A rank's token chunk under sequence parallelism may come strided."""
+    x, w, b, dy = _ln_inputs(card, 2 * 40, 384, torch.bfloat16, torch.bfloat16)
+    chunk = x.view(2, 40, 384)[:, 20:]
+    assert not chunk.is_contiguous()
+    got = lnk.layer_norm(chunk, w, b, torch.bfloat16)
+    assert torch.equal(got, lnk.layer_norm(chunk.contiguous(), w, b, torch.bfloat16))
+
+
+def test_layer_norm_rejects_what_it_cannot_take(card):
+    x, w, b, _ = _ln_inputs(card, 4, 384, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(TypeError):
+        lnk.layer_norm(x.half(), w, b, torch.bfloat16)
+    with pytest.raises(TypeError):
+        lnk.layer_norm(x.float(), w, b, torch.bfloat16)  # float32 rows to bf16: no caller
+    with pytest.raises(ValueError):
+        lnk.layer_norm(x[:, :100], w[:100], b[:100], torch.bfloat16)  # C not a multiple of 8
+    with pytest.raises(ValueError):
+        lnk.layer_norm(x, w.cpu(), b, torch.bfloat16)
+
+
+def test_training_micro_step_through_the_layer_norm_kernels_matches_eager(card, monkeypatch):
+    """Depth 2, full ViT-S width, scale-aware with a live scale pathway: the
+    loss within 1e-3 relative and every gradient at cosine >= 0.99 against
+    the same step with the eager LayerNorm on the card; exact launches: each
+    of the student's and the teacher's passes runs 2 x depth + 2 norms (the
+    blocks', the final and the ScaleEmbedding's), the student's backward
+    one dx and one parameters' launch each."""
+    from dinox_torch.models import vit
+
+    model = MODEL_CONFIGS["vit-small"].replace(scale_aware=True, depth=2)
+    cfg = TrainConfig(model=model, batch_size=4, koleo_weight=0.1)
+    states = [create_train_state(cfg, seed=0) for _ in range(2)]
+    with torch.no_grad():
+        states[0].student.backbone.scale_embed.mlp[2].weight.normal_(0.0, 0.02, generator=card)
+    for s in states:
+        s.student.load_state_dict(states[0].student.state_dict())
+        s.teacher.load_state_dict(states[0].student.state_dict())
+    px = np.random.default_rng(0).integers(25000, 41000, (4, 256, 256, 3)).astype(np.uint16)
+    views = augment_views(torch.from_numpy(px).cuda(), torch.Generator().manual_seed(0), cfg.aug)
+    batch = views.reshape(-1, 224, 224, 3)
+    sp = torch.rand((4, 3), generator=card, device="cuda") * 2.5 + 0.5
+    fns = (lnk.layer_norm_fwd, lnk.layer_norm_bwd, lnk.layer_norm_bwd_params)
+    norms = 2 * model.depth + 2
+    before = [f.launches for f in fns]
+    g_k, _, m_k = micro_loss_and_grads(states[0], states[0].center, batch, sp, cfg)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [2 * norms, norms, norms]
+    monkeypatch.setattr(vit, "layer_norm", lnk.layer_norm_reference)
+    before = [f.launches for f in fns]
+    g_e, _, m_e = micro_loss_and_grads(states[1], states[1].center, batch, sp, cfg)
+    assert [f.launches - n for f, n in zip(fns, before)] == [0, 0, 0]
+    assert abs(m_k["loss"].item() - m_e["loss"].item()) <= 1e-3 * abs(m_e["loss"].item())
+    for a, b in zip(g_k, g_e):
+        if not a.any() and not b.any():
+            continue
+        cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0)
+        assert cos.item() >= 0.99
