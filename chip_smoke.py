@@ -320,6 +320,24 @@ Run from the repository root:  python3 chip_smoke.py
    bytes must be below the one process's), rank 0's ms a step and the
    phase's seconds.
 
+37. DINOv3 ViT-7B/16's block at the 7B cell's shapes: kernel 1 and the
+   backward pair at head dim 128 at (64, 261, 12288, 32) against their
+   plain versions (TOL; BWD_TOL and BWD_REL), twice with equal bits, and
+   timed beside SDPA; the RoPE kernels (ops/rope.py) on that qkv, at the
+   teacher's tables and a student's rescale of 1.6, bit-equal to their
+   plain versions forward and backward (CLS, registers and v untouched);
+   the SwiGLU kernels (ops/swiglu.py) at (16704, 8192) within one bf16
+   step of theirs and at least 99% of elements bit-equal; each timed per
+   call and back to back beside its bound and its plain version. Then one
+   optimizer step of a 2-block vit-7b16 stack at its widths (bs4,
+   recomputation, scale token) with every counter set to 0 just before it:
+   kernel 1, RoPE and SwiGLU forward 3 x depth (student, recomputation,
+   teacher), each backward kernel depth, the LayerNorm forward 2 x (2 x
+   depth + 2) + 2 x depth, dx and parameters 2 x depth + 2, every other
+   kernel 0. The kernels line gains packed_attention_hd128,
+   packed_attention_bwd_hd128, rope and swiglu. `python3 chip_smoke.py
+   --dinov3` runs steps 1-2 and this phase alone.
+
 The last line is {"ok": true, "device": {...}}. Any failed phase exits
 non-zero; without a CUDA card it exits non-zero and prints no result.
 """
@@ -403,6 +421,8 @@ from dinox_torch.ops import flash_attention as fa
 from dinox_torch.ops import fused_attn_block as fab
 from dinox_torch.ops import fused_mlp as fm
 from dinox_torch.ops import layer_norm as lnk
+from dinox_torch.ops import rope as rk
+from dinox_torch.ops import swiglu as sk
 from dinox_torch.ops.augment import augment_views, eval_transform
 from dinox_torch.ops.augment_rgb import RgbAugConfig, augment_rgb_views
 from dinox_torch.ops.flash_attention import flash_attention_packed, packed_attention_reference
@@ -447,6 +467,9 @@ from dinox_torch.utils.roofline import (
     fused_mlp_fwd_work,
     layer_norm_bwd_work,
     layer_norm_fwd_work,
+    rope_work,
+    swiglu_bwd_work,
+    swiglu_fwd_work,
 )
 from dinox_torch.utils.trace_analysis import device_ops
 from dinox_torch.zoo import encode_batch, load_model
@@ -1710,6 +1733,216 @@ def time_layer_norm(peaks: tuple[float, float]) -> dict[str, dict]:
                   f"ms, F.layer_norm's backward {t['bwd_library_ms']:.4f} ms", flush=True)
             out[f"{label}_{c}"] = t
     return out
+
+
+# -- DINOv3 ViT-7B/16's block (phase 37) -----------------------------------
+# The 7B cell's micro-step: 2 x 32 views of 261 tokens (CLS, the 16 x 16
+# patches, 4 registers) at dim 4096, 32 heads of 128; the SwiGLU's rows are
+# its 16704 tokens by 8192. RoPE at the teacher's tables and at a student's
+# rescale draw. The launch gates run a 2-block stack at the full widths.
+D3_VIEWS, D3_GRID, D3_REGS, D3_DIM, D3_HEADS, D3_HIDDEN = 64, 16, 4, 4096, 32, 8192
+D3_TOKENS = 1 + D3_GRID * D3_GRID + D3_REGS
+D3_SHAPE = (D3_VIEWS, D3_TOKENS, 3 * D3_DIM, D3_HEADS)
+D3_RESCALES = (1.0, 1.6)
+D3_STEP_DEPTH, D3_STEP_BATCH = 2, 4
+# A SwiGLU kernel rounds the float32 gate once, as the plain version does;
+# its exp may differ from PyTorch's by a float32 ulp, which moves a bf16
+# rounding now and then. A gate computed in bf16 rounds twice and misses
+# the plain bits far more often.
+D3_GATE_BIT_EQUAL = 0.99
+D3_COUNTERS = {"rope_fwd": rk.rope_fwd, "rope_bwd": rk.rope_bwd, "swiglu_fwd": sk.swiglu_fwd,
+               "swiglu_bwd": sk.swiglu_bwd}
+
+
+def check_dinov3_attention() -> tuple[float, float]:
+    """Kernel 1 and the backward pair (kernels 2/3) at D3_SHAPE, head dim
+    128, against their plain versions, each twice for equal bits. Returns
+    the worst error forward and backward."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    b, n, three_dim, heads = D3_SHAPE
+    qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
+    do = torch.randn((b, n, three_dim // 3), generator=g, device="cuda").to(torch.bfloat16)
+    out = [flash_attention_packed(qkv, heads) for _ in range(2)]
+    back = [fa.packed_attention_backward(qkv, do, heads) for _ in range(2)]
+    torch.cuda.synchronize()
+    err = (out[0].float() - packed_attention_reference(qkv, heads).float()).abs().max().item()
+    want = fa.packed_attention_backward_reference(qkv, do, heads).float()
+    bwd_err = (back[0].float() - want).abs().max().item()
+    rel = bwd_err / want.abs().max().item()
+    same = torch.equal(*out) and torch.equal(*back)
+    print(f"kernel check head dim 128 at {D3_SHAPE}: packed_attention max_abs_err={err:.3e} (tol {TOL}); "
+          f"backward pair max_abs_err={bwd_err:.3e} (tol {BWD_TOL}), max_abs_err/max|want|={rel:.3e} "
+          f"(tol {BWD_REL}); two runs bit-equal: {same}", flush=True)
+    if not np.isfinite([err, bwd_err]).all() or err >= TOL or bwd_err >= BWD_TOL or rel >= BWD_REL:
+        fail(f"kernels 1-3 disagree with their plain versions at head dim 128, {D3_SHAPE}")
+    if not same:
+        fail(f"kernels 1-3's bits are not repeatable at head dim 128, {D3_SHAPE}")
+    return err, bwd_err
+
+
+def dinov3_rope(peaks: tuple[float, float]) -> dict:
+    """The RoPE kernels at the 7B micro-step's qkv for each of D3_RESCALES:
+    the forward (in place) and the backward bit-equal to their plain
+    versions, twice, CLS, the registers and v untouched; then each timed
+    per call and back to back beside its bound and the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    b, n, three_dim, heads = D3_SHAPE
+    hd, patches = D3_DIM // heads, D3_GRID * D3_GRID
+    qkv = torch.randn((b, n, three_dim), generator=g, device="cuda").to(torch.bfloat16)
+    for rho in D3_RESCALES:
+        cos, sin = rk.rope_tables(D3_GRID, hd, rho, "cuda")
+        runs = []
+        for _ in range(2):
+            got = qkv.clone()
+            rk.rope_fwd(got, cos, sin, heads, 1)
+            runs.append((got, rk.rope_bwd(qkv, cos, sin, heads, 1)))
+        torch.cuda.synchronize()
+        got, back = runs[0]
+        exact = (torch.equal(got, rk.rope_reference(qkv, cos, sin, heads, 1))
+                 and torch.equal(back, rk.rope_backward_reference(qkv, cos, sin, heads, 1)))
+        kept = (torch.equal(got[:, 0], qkv[:, 0]) and torch.equal(got[:, 1 + patches:], qkv[:, 1 + patches:])
+                and torch.equal(got[..., 2 * D3_DIM:], qkv[..., 2 * D3_DIM:]))
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
+        print(f"kernel check rope at {D3_SHAPE}, rescale {rho}: forward and backward bit-equal to the "
+              f"plain versions: {exact}; CLS, registers and v untouched: {kept}; two runs bit-equal: "
+              f"{same}", flush=True)
+        if not (exact and kept and same):
+            fail(f"the RoPE kernels disagree with their plain versions at {D3_SHAPE}, rescale {rho}")
+    cos, sin = rk.rope_tables(D3_GRID, hd, 1.0, "cuda")
+    x = qkv.clone()
+
+    def fwd():
+        rk.rope_fwd(x, cos, sin, heads, 1)
+
+    def bwd():
+        rk.rope_bwd(qkv, cos, sin, heads, 1)
+
+    bound = bound_ms(*rope_work(b, patches, D3_DIM, heads), peaks)
+    t = {"shape": list(D3_SHAPE), "ms": median_ms(fwd), "device_ms": stream_ms(fwd),
+         "bwd_ms": median_ms(bwd), "bwd_device_ms": stream_ms(bwd),
+         "plain_ms": median_ms(lambda: rk.rope_reference(qkv, cos, sin, heads, 1), iters=10),
+         "bwd_plain_ms": median_ms(lambda: rk.rope_backward_reference(qkv, cos, sin, heads, 1), iters=10),
+         "bound_ms": bound[0], "bound_by": bound[1]}
+    t.update(pct_of_bound=100 * bound[0] / t["device_ms"], bwd_pct_of_bound=100 * bound[0] / t["bwd_device_ms"])
+    print(f"rope at {D3_SHAPE}: forward {t['ms']:.4f} ms per call, {t['device_ms']:.4f} ms back to back, "
+          f"{t['pct_of_bound']:.1f}% of the {bound[0]:.4f} ms bound ({bound[1]}: q and k of the patch "
+          f"rows and the tables); plain {t['plain_ms']:.4f} ms. Backward {t['bwd_ms']:.4f} ms per call, "
+          f"{t['bwd_device_ms']:.4f} ms back to back, {t['bwd_pct_of_bound']:.1f}% of the same bound (it "
+          f"also copies v and the unrotated rows); plain {t['bwd_plain_ms']:.4f} ms", flush=True)
+    return t
+
+
+def dinov3_swiglu(peaks: tuple[float, float]) -> dict:
+    """The SwiGLU kernels at the 7B micro-step's rows: forward and backward
+    within one bf16 step of their plain versions and at least
+    D3_GATE_BIT_EQUAL of their elements bit-equal, twice for equal bits;
+    then each timed beside its bound and the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    rows = D3_VIEWS * D3_TOKENS
+    h = (2 * torch.randn((rows, 2 * D3_HIDDEN), generator=g, device="cuda")).to(torch.bfloat16)
+    dz = torch.randn((rows, D3_HIDDEN), generator=g, device="cuda").to(torch.bfloat16)
+    runs = [(sk.swiglu_fwd(h), sk.swiglu_bwd(h, dz)) for _ in range(2)]
+    torch.cuda.synchronize()
+    worst, share = 0.0, 1.0
+    for got, want in zip(runs[0], (sk.swiglu_reference(h), sk.swiglu_backward_reference(h, dz))):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= 2.0 ** -7 * want.float().abs() + 1e-30).all()):
+            fail(f"the SwiGLU kernels are more than one bf16 step from their plain versions at ({rows}, "
+                 f"{D3_HIDDEN})")
+        worst = max(worst, err.max().item())
+        share = min(share, (got == want).float().mean().item())
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"kernel check swiglu at ({rows}, {D3_HIDDEN}): within one bf16 step of the plain versions, "
+          f"max_abs_err={worst:.3e}; the smaller share bit-equal {share:.5f} (at least "
+          f"{D3_GATE_BIT_EQUAL}); two runs bit-equal: {same}", flush=True)
+    if share < D3_GATE_BIT_EQUAL or not same:
+        fail(f"the SwiGLU kernels do not round as their plain versions at ({rows}, {D3_HIDDEN})")
+    fb = bound_ms(*swiglu_fwd_work(rows, D3_HIDDEN), peaks)
+    bb = bound_ms(*swiglu_bwd_work(rows, D3_HIDDEN), peaks)
+    t = {"shape": [rows, D3_HIDDEN], "max_abs_err": worst, "bit_equal": share,
+         "ms": median_ms(lambda: sk.swiglu_fwd(h)), "device_ms": stream_ms(lambda: sk.swiglu_fwd(h)),
+         "bwd_ms": median_ms(lambda: sk.swiglu_bwd(h, dz)), "bwd_device_ms": stream_ms(lambda: sk.swiglu_bwd(h, dz)),
+         "plain_ms": median_ms(lambda: sk.swiglu_reference(h), iters=10),
+         "bwd_plain_ms": median_ms(lambda: sk.swiglu_backward_reference(h, dz), iters=10),
+         "bound_ms": fb[0], "bound_by": fb[1], "bwd_bound_ms": bb[0], "bwd_bound_by": bb[1]}
+    t.update(pct_of_bound=100 * fb[0] / t["device_ms"], bwd_pct_of_bound=100 * bb[0] / t["bwd_device_ms"])
+    print(f"swiglu at ({rows}, {D3_HIDDEN}): forward {t['ms']:.4f} ms per call, {t['device_ms']:.4f} ms back "
+          f"to back, {t['pct_of_bound']:.1f}% of the {fb[0]:.4f} ms bound ({fb[1]}); plain "
+          f"{t['plain_ms']:.4f} ms. Backward {t['bwd_ms']:.4f} ms per call, {t['bwd_device_ms']:.4f} ms back "
+          f"to back, {t['bwd_pct_of_bound']:.1f}% of the {bb[0]:.4f} ms bound ({bb[1]}); plain "
+          f"{t['bwd_plain_ms']:.4f} ms", flush=True)
+    return t
+
+
+def dinov3_step() -> dict[str, int]:
+    """One optimizer step of a D3_STEP_DEPTH-block vit-7b16 stack at its
+    widths (scale-aware, recomputation, the student's RoPE rescale drawn)
+    at batch D3_STEP_BATCH, after one warm-up step, with every counter set
+    to 0 just before it: exact launches of kernels 1-3, RoPE, SwiGLU and
+    the LayerNorm kernels, none of any other kernel, a finite loss."""
+    mcfg = MODEL_CONFIGS["vit-7b16"].replace(depth=D3_STEP_DEPTH, scale_aware=True, use_grad_checkpoint=True)
+    cfg = TrainConfig(model=mcfg, img_size=mcfg.img_size, batch_size=D3_STEP_BATCH, koleo_weight=0.1)
+    state = create_train_state(cfg, seed=SEED, device="cuda")
+    step_fn = build_train_step(cfg, device="cuda")
+    rng = np.random.default_rng(SEED + 73)
+    pixels = torch.as_tensor(rng.integers(25000, 41000, (1, D3_STEP_BATCH, 512, 512, 3)).astype(np.uint16),
+                             device="cuda")
+    spacing = torch.as_tensor(rng.uniform(0.4, 3.0, (1, D3_STEP_BATCH, 3)).astype(np.float32), device="cuda")
+    state, _ = step_fn(state, pixels, spacing)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for fn in D3_COUNTERS.values():
+        fn.launches = 0
+    state, metrics = step_fn(state, pixels, spacing)
+    loss = float(metrics["loss"])
+    counts = {**launch_counts(), **{k: fn.launches for k, fn in D3_COUNTERS.items()}}
+    depth = mcfg.depth
+    norms = 2 * depth + 2  # the blocks', the final and the ScaleEmbedding's
+    # Passes a micro-step: the student's, its recomputation (the blocks
+    # alone), the teacher's; one backward.
+    want = {**want_counts(packed_attention=3 * depth, packed_attention_bwd_dq=depth,
+                          packed_attention_bwd_dkv=depth),
+            "layer_norm_fwd": 2 * norms + 2 * depth, "layer_norm_bwd": norms, "layer_norm_bwd_params": norms,
+            "rope_fwd": 3 * depth, "rope_bwd": depth, "swiglu_fwd": 3 * depth, "swiglu_bwd": depth}
+    print(f"vit-7b16 at depth {depth}, bs{D3_STEP_BATCH}, one step: loss {loss:.4f}; launches "
+          f"{ {k: counts[k] for k in want} } (want {want})", flush=True)
+    if not np.isfinite(loss):
+        fail("the vit-7b16 step's loss is not finite")
+    if not held(counts, want):
+        fail("the vit-7b16 step did not run its attention, RoPE, SwiGLU and LayerNorm through the "
+             "kernels exactly as often as its passes make them")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dinov3_path(peaks: tuple[float, float]) -> list[dict]:
+    """Phase 37: the DINOv3 block's kernels at the 7B cell's shapes, checked,
+    timed and gated on a micro-step; their entries of the kernels line."""
+    err1, err23 = check_dinov3_attention()
+    fwd = time_forward(peaks, D3_SHAPE, "DINOv3 ViT-7B micro-step", SEED + 74)
+    bwd = time_backward(peaks, D3_SHAPE)
+    rope_t, swiglu_t = dinov3_rope(peaks), dinov3_swiglu(peaks)
+    counts = dinov3_step()
+    step = f"vit-7b16 depth {D3_STEP_DEPTH} bs{D3_STEP_BATCH} step"
+    return [
+        {"name": "packed_attention_hd128", "route": "cuda", "source": "dinox_torch/ops/csrc/packed_attention.cu",
+         "replaces": "dinox_tpu/ops/flash_attention.py:200", "launches": counts["packed_attention"],
+         "launches_of": step, "max_abs_err": err1, "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+         "bound_ms": fwd["bound"][0], "bound_by": fwd["bound"][1], "library_ms": fwd["library_ms"],
+         "shape": fwd["shape"], "device_ms": fwd["device_ms"]},
+        {"name": "packed_attention_bwd_hd128", "route": "cuda",
+         "source": "dinox_torch/ops/csrc/packed_attention_bwd.cu", "replaces": "dinox_tpu/ops/flash_attention.py:222",
+         "launches": counts["packed_attention_bwd_dq"], "launches_of": step, "max_abs_err": err23,
+         "ms": bwd["dq"]["ms"], "plain_ms": bwd["dq"]["plain_ms"], "bound_ms": bwd["dq"]["bound"][0],
+         "bound_by": bwd["dq"]["bound"][1], "library_ms": bwd["dq"]["library_ms"], "shape": list(D3_SHAPE),
+         "device_ms": bwd["dq"]["device_ms"], "dkv": bwd["dkv"]},
+        {"name": "rope", "route": "cuda", "source": "dinox_torch/ops/csrc/rope.cu", "replaces": None,
+         "launches": [counts["rope_fwd"], counts["rope_bwd"]], "launches_of": step, "max_abs_err": 0.0,
+         **rope_t},
+        {"name": "swiglu", "route": "cuda", "source": "dinox_torch/ops/csrc/swiglu.cu", "replaces": None,
+         "launches": [counts["swiglu_fwd"], counts["swiglu_bwd"]], "launches_of": step, **swiglu_t},
+    ]
 
 
 def serve_fused(service, reqs: dict, timed: list, served: dict, depth: int) -> None:
@@ -4254,6 +4487,30 @@ def main() -> int:
                                         "device_ms": bwd5["parts_device_ms"][p]}
                   for p, ms in bwd5["parts"].items()},
     })
+    kernels += dinov3_path(peaks)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def dinov3_only() -> int:
+    """``python3 chip_smoke.py --dinov3``: steps 1 and 2, then phase 37
+    alone, and its kernels line."""
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s", flush=True)
+    for name in ("packed_attention", "packed_attention_bwd", "rope", "swiglu"):
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+    kernels = dinov3_path(card_peaks(card))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4271,4 +4528,6 @@ def worker(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(worker(sys.argv[2:]) if sys.argv[1:2] == ["--worker"] else main())
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker(sys.argv[2:]))
+    sys.exit(dinov3_only() if sys.argv[1:2] == ["--dinov3"] else main())

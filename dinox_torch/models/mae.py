@@ -123,6 +123,9 @@ class MaeModel(nn.Module):
                  device: torch.device | str | None = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if cfg.block != "vit":
+            raise ValueError("the MAE encoder adds learned positions: it does not take the "
+                             "RoPE/SwiGLU/LayerScale block")
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         self.cfg, self.mask_ratio = cfg, mask_ratio
         # The JAX encoder never calls its ScaleEmbedding, so it has no parameters.

@@ -55,6 +55,12 @@ rounding points:
   the LoRA dropout masks of the forward (the LoRA generators' states are
   noted per block and set back), as ``nn.remat`` replays its flax rng.
 
+* ``ModelConfig.block="dinov3"`` builds DINOv3's ViT-7B block,
+  :class:`RopeBlock`, in place of :class:`TransformerBlock`; the choice is
+  made once, in ``PatchViT.__init__``, and the blocks the JAX package has
+  run as before. Such a model has no ``pos_embed``: each block rotates the
+  patch tokens' q and k (``ops.rope``, tables from :class:`RopeTables`).
+
 * On a mesh (:func:`set_mesh`, ``parallel.mesh``), as the JAX package's
   ``mesh``: more than one rank sends the fused attention half-block's
   blocks through kernel 1 and the pair; with tp > 1 each block is
@@ -105,6 +111,8 @@ from dinox_torch.ops.flash_attention import mha_attention_reference as sdpa_xla
 from dinox_torch.ops.fused_attn_block import fused_attn_block
 from dinox_torch.ops.fused_mlp import fused_mlp_block
 from dinox_torch.ops.layer_norm import layer_norm
+from dinox_torch.ops.rope import apply_rope, rope_tables
+from dinox_torch.ops.swiglu import swiglu
 from dinox_torch.parallel.mesh import cut
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -183,6 +191,17 @@ class Linear(nn.Module):
         if width is not None:
             keep = keep[..., start:start + x.shape[-1]]
         return torch.where(keep, x / (1.0 - self.lora_dropout), torch.zeros_like(x))
+
+
+class LinearNoBias(Linear):
+    """Dense layer without a bias: ``x @ W^T`` rounded to x's dtype."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        self.register_parameter("bias", None)
+
+    def base(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.weight.to(x.dtype).t())
 
 
 class LayerNorm(nn.Module):
@@ -416,6 +435,113 @@ class TransformerBlock(nn.Module):
         return self.forward_with_aux(x)[0]
 
 
+class RopeTables(nn.Module):
+    """The cos and sin tables of a model's RoPE (``ops.rope.rope_tables``):
+    one ``(n_patches, hd/2)`` pair a device and rescale factor, made when a
+    block first asks for it and kept until the factor changes. The factor
+    is :attr:`rho` in training mode (set before each student forward by
+    the training step, :meth:`PatchViT.set_rope_rescale`) and 1 otherwise,
+    as DINOv3 rescales only in training. A recomputed block (gradient
+    checkpointing) gets the tables of its forward: the factor changes only
+    before the next forward of the same model. No parameters or buffers."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.grid, self.hd = cfg.img_size // cfg.patch, cfg.dim // cfg.heads
+        self.rho = 1.0
+        self._key: Optional[tuple] = None
+        self._tables: Optional[tuple[torch.Tensor, torch.Tensor]] = None
+
+    def tables(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        key = (device, self.rho if self.training else 1.0)
+        if key != self._key:
+            self._tables = rope_tables(self.grid, self.hd, key[1], device)
+            self._key = key
+        return self._tables
+
+
+class LayerScale(nn.Module):
+    """DINOv3's per-channel gain of a residual branch, ``gamma``."""
+
+    def __init__(self, dim: int, init: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init)))
+
+
+def scaled_residual(x: torch.Tensor, y: torch.Tensor, ls: LayerScale) -> torch.Tensor:
+    """``x + gamma * y`` in float32, rounded once to x's dtype."""
+    return torch.addcmul(x, y, ls.gamma).to(x.dtype)
+
+
+class SwiGluMlp(nn.Module):
+    """DINOv3's SwiGLU feed-forward: ``w3(silu(u) * g)``, ``[u, g] = w12(x)``
+    one product 2 x hidden wide; the gate is ``ops.swiglu``."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = Linear(dim, 2 * hidden)
+        self.w3 = Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w3(swiglu(self.w12(x)))
+
+
+class RopeBlock(nn.Module):
+    """DINOv3's ViT-7B block (arXiv:2508.10104, facebookresearch/dinov3
+    ``SelfAttentionBlock``), pre-norm, on the port's token order [CLS,
+    patches, registers]::
+
+        h = LN1(x);  [q, k, v] = h W_qkv
+        q, k <- RoPE(q, k) on the patch tokens (CLS and registers as they are)
+        x <- x + gamma1 * (softmax(q k^T / sqrt(hd)) v W_o + b_o)
+        h = LN2(x);  [u, g] = h W12 + b12
+        x <- x + gamma2 * ((silu(u) * g) W3 + b3)
+
+    Rounding points: the dense layers keep :class:`Linear`'s (product
+    rounded to the compute dtype, then the bias in it); the rotation
+    (``ops.rope``) and the gate (``ops.swiglu``) are computed in float32 and
+    rounded once; the residual update ``x + gamma * y`` in float32, rounded
+    once to the residual stream's dtype. ``state_dict``
+    keys are DINOv3's where they exist: ``attn.qkv``, ``attn.proj``,
+    ``mlp.w12``, ``mlp.w3``, ``ls1.gamma``, ``ls2.gamma`` (and ``norm1``,
+    ``norm2``). It refuses, at construction, the fused half-blocks, MoE,
+    LoRA and (in :meth:`set_mesh`) tp > 1."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, rope: RopeTables):
+        super().__init__()
+        refused = [name for name, on in (("fused_attn", cfg.fused_attn), ("fused_mlp", cfg.fused_mlp),
+                                          ("moe_experts", cfg.moe_experts > 0),
+                                          ("lora_rank", cfg.lora_rank > 0)) if on]
+        if refused:
+            raise ValueError(f"the RoPE/SwiGLU/LayerScale block does not take {', '.join(refused)}")
+        self.norm1 = LayerNorm(cfg.dim, dtype)
+        self.attn = Attention(cfg.dim, cfg.heads, cfg.attn_impl)
+        self.attn.qkv = LinearNoBias(cfg.dim, 3 * cfg.dim)
+        self.ls1 = LayerScale(cfg.dim, cfg.layer_scale)
+        self.norm2 = LayerNorm(cfg.dim, dtype)
+        self.mlp = SwiGluMlp(cfg.dim, cfg.ffn_hidden)
+        self.ls2 = LayerScale(cfg.dim, cfg.layer_scale)
+        object.__setattr__(self, "rope", rope)  # the model's, not a submodule of each block
+        self.cfg = cfg
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        if mesh.tp > 1:
+            raise ValueError(f"the RoPE/SwiGLU/LayerScale block does not take model_parallel={mesh.tp}")
+        self.mesh = mesh
+
+    def forward_with_aux(self, x: torch.Tensor, n_tokens: Optional[int] = None
+                         ) -> tuple[torch.Tensor, None]:
+        a = self.attn
+        cos, sin = self.rope.tables(x.device)
+        qkv = apply_rope(a.qkv(self.norm1(x)), cos, sin, a.heads, first=1)
+        x = scaled_residual(x, a.proj(a.attend(qkv, a.heads)), self.ls1)
+        return scaled_residual(x, self.mlp(self.norm2(x)), self.ls2), None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(x)[0]
+
+
 class ScaleEmbedding(nn.Module):
     """Physical spacing (sx, sy, slice thickness in mm) -> (B, 1, dim):
     3 -> max(dim//4, 16) -> exact GELU -> dim -> LayerNorm. The output layer
@@ -457,15 +583,23 @@ class PatchViT(nn.Module):
         d = cfg.dim
         self.patch_embed = PatchEmbed(cfg.patch, d)
         self.cls_token = nn.Parameter(torch.empty(1, 1, d))
-        self.pos_embed = nn.Parameter(torch.empty(1, 1 + cfg.n_patches, d))
+        if cfg.block == "vit":
+            self.pos_embed = nn.Parameter(torch.empty(1, 1 + cfg.n_patches, d))
+        else:
+            self.register_parameter("pos_embed", None)
         if cfg.num_registers > 0:
             self.registers = nn.Parameter(torch.empty(1, cfg.num_registers, d))
         if cfg.scale_aware:
             self.scale_embed = ScaleEmbedding(d, self.compute_dtype)
-        self.blocks = nn.ModuleList(
-            TransformerBlock(cfg, self.compute_dtype,
-                             moe=cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1)
-            for i in range(cfg.depth))
+        self.rope = RopeTables(cfg) if cfg.block == "dinov3" else None
+        if self.rope is not None:
+            self.blocks = nn.ModuleList(RopeBlock(cfg, self.compute_dtype, self.rope)
+                                        for _ in range(cfg.depth))
+        else:
+            self.blocks = nn.ModuleList(
+                TransformerBlock(cfg, self.compute_dtype,
+                                 moe=cfg.moe_experts > 0 and i % cfg.moe_every == cfg.moe_every - 1)
+                for i in range(cfg.depth))
         self.norm = LayerNorm(d, torch.float32)
         self.mesh = None  # set by set_mesh
         self.reset_parameters(generator)
@@ -486,14 +620,18 @@ class PatchViT(nn.Module):
         for m in self.modules():
             if isinstance(m, Linear):
                 nn.init.xavier_uniform_(m.weight, generator=g)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, LayerScale):
+                m.gamma.fill_(self.cfg.layer_scale)
         trunc(self.patch_embed.weight, 0.02)
         self.patch_embed.bias.zero_()
         trunc(self.cls_token, 0.02)
-        trunc(self.pos_embed, 0.1)
+        if self.pos_embed is not None:
+            trunc(self.pos_embed, 0.1)
         for m in self.modules():
             if isinstance(m, MoeMlp):  # flax: router truncated normal, experts xavier per expert
                 trunc(m.router.weight, 0.02)
@@ -539,12 +677,18 @@ class PatchViT(nn.Module):
         b = x.shape[0]
         x = self.patch_tokens(x)
         x = torch.cat([self.cls_token.to(dt).expand(b, -1, -1), x], dim=1)
-        x = x + self.pos_embed.to(dt)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed.to(dt)
         if self.cfg.scale_aware and spacing is not None:
             x = x + self.scale_embed(spacing)
         if self.cfg.num_registers > 0:
             x = torch.cat([x, self.registers.to(dt).expand(b, -1, -1)], dim=1)
         return x
+
+    def set_rope_rescale(self, rho: float) -> None:
+        """The RoPE coordinates' factor of the training forwards from now on
+        (DINOv3's ``rescale_coords`` draw; :class:`RopeTables`)."""
+        self.rope.rho = float(rho)
 
     def run_blocks(self, x: torch.Tensor) -> torch.Tensor:
         return self.run_blocks_with_aux(x)[0]
@@ -607,7 +751,7 @@ def set_mesh(model: nn.Module, mesh) -> None:
     for m in model.modules():
         if isinstance(m, PatchViT):
             m.mesh = mesh
-        elif isinstance(m, TransformerBlock):
+        elif isinstance(m, (TransformerBlock, RopeBlock)):
             m.set_mesh(mesh)
 
 

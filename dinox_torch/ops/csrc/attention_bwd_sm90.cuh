@@ -80,7 +80,12 @@
 // at hd <= 64, the most that lets 3 CTAs of 5 warps share an SM (one
 // scheduler holds 4 of their 15 warps); a 64-column step needs more and
 // runs 2 CTAs per SM. The dq kernel (S, dP and dQ in registers) runs 3 CTAs
-// per SM at hd <= 64; at hd 88 both run 2, with 0 spills everywhere. No
+// per SM at hd <= 64; at hd 88 both run 2, with 0 spills everywhere. At hd
+// 128 (the ring and the fixed tiles 97 KB of shared memory a CTA) the
+// launch bound asks for one CTA an SM: two CTAs of 5 warps put 3 warps on
+// one scheduler, which caps a thread at 168 registers, under what dQ (64
+// accumulators beside S and dP) or dK + dV (128) need without spilling; a
+// kernel that fits in 168 still runs two. No
 // atomics: every output element is written once, by one thread, and the
 // same inputs give the same bits on every run.
 //
@@ -107,7 +112,7 @@ static_assert(BLOCK == BLOCK_M && BLOCK == BLOCK_N, "the forward's box shape ser
 
 template <int HD>
 struct Layout {
-  static constexpr int HDP = Smem<HD>::HDP;  // 32, 64, 96
+  static constexpr int HDP = Smem<HD>::HDP;  // 32, 64, 96, 128
   static constexpr int TILE = Smem<HD>::TILE;
   static constexpr int FIXED_OFF = 0;         // dq: Q, dO; dkv: K, V (loaded once)
   static constexpr int RING_OFF = 2 * TILE;   // per stage: dq: K, V; dkv: Q, dO
@@ -342,7 +347,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Layout<HD>::HDP / 
 // map_k, map_v, map_do are (hd, N, H, B). Writes dq's rows of the CTA's query
 // tile and their (m, l, D) to stats (B * heads, 3, N).
 template <int HD, bool PACKED>
-__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : HD <= 96 ? 2 : 1)
 attention_bwd_sm90_dq(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
@@ -462,7 +467,7 @@ attention_bwd_sm90_dq(const __grid_constant__ CUtensorMap map_q,
 // maps as for the dq kernel. Reads the (m, l, D) that the dq kernel wrote to
 // stats and writes dk's and dv's rows of the CTA's key tile.
 template <int HD, bool PACKED>
-__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : HD <= 96 ? 2 : 1)
 attention_bwd_sm90_dkv(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v,

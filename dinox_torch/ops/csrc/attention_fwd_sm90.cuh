@@ -17,9 +17,10 @@
 //     transposed). S, P and O never go through shared memory.
 // Shared memory is written by TMA with the 64-byte swizzle (boxes of 32
 // columns x 64 rows) and read by wgmma through descriptors of the same
-// swizzle, so operand reads have no bank conflicts. Head dims 32, 64 and 88
-// (88 is zero-padded to 96 by TMA's out-of-bounds fill: the maps' innermost
-// extent is exactly hd, so no column of a neighbouring head is read).
+// swizzle, so operand reads have no bank conflicts. Head dims 32, 64, 88
+// and 128 (88 is zero-padded to 96 by TMA's out-of-bounds fill: the maps'
+// innermost extent is exactly hd, so no column of a neighbouring head is
+// read).
 //
 // The ragged edge: TMA zero-fills K/V rows past N, and a zero K row would give
 // a logit of 0, so key columns >= N are set to -inf before the row max. The
@@ -28,7 +29,9 @@
 // ceil(N / 64) query blocks, so no CTA's rows all lie past N; rows past N are
 // never stored. No atomics: the same inputs give the same bits on every run.
 //
-// One consumer warpgroup per CTA, four CTAs per SM at hd <= 64. Each product
+// One consumer warpgroup per CTA, four CTAs per SM at hd <= 64, three at hd
+// 88 and two at hd 128 (the O accumulator alone is 64 registers a thread
+// there, and the Q tile and the K/V ring 80 KB of shared memory). Each product
 // is waited for before the softmax that reads it (PERF.md records the
 // variants that were measured slower on an H100).
 //
@@ -76,7 +79,7 @@ static_assert(BLOCK_M == 64 && BLOCK_N == 64, "one box shape serves the Q and K/
 
 template <int HD>
 struct Smem {
-  static constexpr int HDP = (HD + BOX_COLS - 1) / BOX_COLS * BOX_COLS;  // 32, 64, 96
+  static constexpr int HDP = (HD + BOX_COLS - 1) / BOX_COLS * BOX_COLS;  // 32, 64, 96, 128
   static constexpr int BOXES = HDP / BOX_COLS;
   static constexpr int TILE = BOXES * BOX_BYTES;  // one Q, K or V tile
   static constexpr int Q_OFF = 0;
@@ -263,6 +266,27 @@ __device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // -- the tile core ------------------------------------------------------------
 
 // S = Q K^T over the first KW rows of the K tile at `sk`.
@@ -404,7 +428,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // `out` is the packed (B, N, heads * hd) output when PACKED, else the
 // head-major (B, heads, N, hd) one.
 template <int HD, Rounding R, bool PACKED>
-__global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : 3)
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 4 : HD <= 96 ? 3 : 2)
 attention_fwd_sm90(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,

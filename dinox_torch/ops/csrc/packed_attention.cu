@@ -55,6 +55,8 @@ extern "C" int dinox_packed_attention_fwd_bf16(const void* qkv, void* out, int b
       return static_cast<int>(launch<64>(qkv, out, b, n, heads, scale, s));
     case 88:
       return static_cast<int>(launch<88>(qkv, out, b, n, heads, scale, s));
+    case 128:
+      return static_cast<int>(launch<128>(qkv, out, b, n, heads, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -70,6 +72,8 @@ extern "C" int dinox_packed_attention_fwd_occupancy(int hd, int* regs, int* smem
       return static_cast<int>(occupancy<64, Rounding::Packed, true>(regs, smem, ctas));
     case 88:
       return static_cast<int>(occupancy<88, Rounding::Packed, true>(regs, smem, ctas));
+    case 128:
+      return static_cast<int>(occupancy<128, Rounding::Packed, true>(regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -104,6 +104,8 @@ extern "C" int dinox_packed_attention_bwd_dq_bf16(const void* qkv, const void* d
       return static_cast<int>(dq<64>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
     case 88:
       return static_cast<int>(dq<88>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
+    case 128:
+      return static_cast<int>(dq<128>(qkv, dout, dqkv, stats, b, n, heads, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -120,6 +122,8 @@ extern "C" int dinox_packed_attention_bwd_dkv_bf16(const void* qkv, const void* 
       return static_cast<int>(dkv<64>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
     case 88:
       return static_cast<int>(dkv<88>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
+    case 128:
+      return static_cast<int>(dkv<128>(qkv, dout, stats, dqkv, b, n, heads, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -137,6 +141,8 @@ extern "C" int dinox_packed_attention_bwd_occupancy(int hd, int part, int* regs,
       return static_cast<int>(occupancy_bwd<64, true>(part, regs, smem, ctas));
     case 88:
       return static_cast<int>(occupancy_bwd<88, true>(part, regs, smem, ctas));
+    case 128:
+      return static_cast<int>(occupancy_bwd<128, true>(part, regs, smem, ctas));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -55,6 +55,11 @@ backward 269.4 MB, 80.4 us (bytes); at (8, 8, 1024, 64) the forward's 17.2
 GFLOP bound it at 17.4 us (the two passes issue 25.8). The kernels take any
 N (no fallback above 1024). Launch counts: ``flash_attention.launches``,
 ``mha_attention_bwd_dq.launches`` and ``mha_attention_bwd_dkv.launches``.
+
+Head dims: every kernel takes 32, 64 and 88 (:data:`SUPPORTED_HEAD_DIMS`);
+kernels 1-3 also take 128 (:data:`PACKED_HEAD_DIMS`), DINOv3 ViT-7B's 32
+heads of 128, at two CTAs an SM (the f32 O, dQ or dK + dV accumulators are
+64 to 128 registers a thread there).
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ import torch
 
 from dinox_torch.ops import _build
 
-SUPPORTED_HEAD_DIMS = (32, 64, 88)
+SUPPORTED_HEAD_DIMS = (32, 64, 88)  # every attention kernel (1-6)
+PACKED_HEAD_DIMS = SUPPORTED_HEAD_DIMS + (128,)  # kernels 1-3 also take DINOv3 ViT-7B's heads
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -182,8 +188,8 @@ def _check(qkv: torch.Tensor, heads: int) -> int:
     if dim % heads:
         raise ValueError(f"dim {dim} is not divisible by heads {heads}")
     hd = dim // heads
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported by the kernel (supported: {SUPPORTED_HEAD_DIMS})")
+    if hd not in PACKED_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not supported by the kernel (supported: {PACKED_HEAD_DIMS})")
     _check_operand(qkv, "qkv")
     return hd
 

@@ -85,7 +85,7 @@ from dinox_torch.zoo.lineage import get_git_commit
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="vit-small",
-                   choices=["vit-tiny", "vit-small", "vit-large", "vit-giant"])
+                   choices=["vit-tiny", "vit-small", "vit-large", "vit-giant", "vit-7b16"])
     p.add_argument("--index-csv", type=Path, default=None)
     p.add_argument("--split-manifest", type=Path, default=None)
     p.add_argument("--run-dir", type=Path, required=True)

@@ -25,7 +25,10 @@ micro-steps, with ``reduce`` nested in it on a mesh.
 
 Randomness: a CPU ``torch.Generator`` per (train_seed, step, micro-batch)
 for the augmentation, another for the spacing jitter and a third for the
-MAE mask noise.
+MAE mask noise. A DINOv3-block model with ``rope_rescale`` > 1 (DINOv3's
+``rescale_coords``) takes a fourth: the student forward's coordinate factor,
+``exp(log(rescale) * (2u - 1))`` of one uniform u (:func:`rope_rescale`);
+the teacher's is 1. The choice is made once, when the step is built.
 
 On a mesh (``parallel.mesh.Mesh``; the counterpart of the JAX step's
 ``mesh``) each rank takes its rows ``[lo, hi)`` of the global batch (cut
@@ -48,6 +51,7 @@ without a mesh, to the bit.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -218,6 +222,14 @@ def _grad_norm(student: Student, grads: list[torch.Tensor], mesh: Optional[Mesh]
     return torch.sqrt(sharded + torch.stack(sq[None]).sum())
 
 
+def rope_rescale(cfg: TrainConfig, step: int, micro: int) -> float:
+    """The RoPE coordinate factor of the student's forward at optimizer
+    step *step*, micro-batch *micro*: log-uniform in [1/r, r], r =
+    ``rope_rescale``, from stream 3 of (train_seed, step, micro)."""
+    u = float(torch.rand((), generator=seeded_generator(cfg.train_seed, step, micro, 3)))
+    return math.exp(math.log(cfg.model.rope_rescale) * (2.0 * u - 1.0))
+
+
 def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
                      augment_fn: Optional[Callable] = None, mesh: Optional[Mesh] = None
                      ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
@@ -241,6 +253,7 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
     augment = augment_views if augment_fn is None else augment_fn
     aug_cfg = cfg.aug
     group = None if mesh is None else mesh.data_group
+    rescale = cfg.model.rope_rescale != 1.0 and cfg.loss_type != "mae"
 
     def step_fn(state: TrainState, pixels, spacing):
         with span("dinox.train.step"):
@@ -268,6 +281,8 @@ def build_train_step(cfg: TrainConfig, device: torch.device | str | None = None,
                                 **({} if rows is None else {"rows": rows}))
                 batch = views.reshape((-1,) + tuple(views.shape[2:]))
                 sp = torch.as_tensor(spacing[a], dtype=torch.float32, device=dev)
+                if rescale:
+                    state.student.backbone.set_rope_rescale(rope_rescale(cfg, state.step, a))
             g, center, metrics = micro_loss_and_grads(state, center, batch, sp, cfg, jitter, noise, group, rows)
             seq.append(metrics)
             if grads is None:

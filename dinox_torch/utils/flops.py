@@ -41,15 +41,15 @@ def moe_flops_per_view_per_block(mcfg: ModelConfig) -> float:
 
 def forward_flops_per_view(mcfg: ModelConfig) -> float:
     """Matmul FLOPs of one backbone + head forward on one view: patch embed,
-    per-block qkv, the two attention products, proj and MLP (or the MoE
-    block's, in every ``moe_every``-th block), the head on CLS."""
+    per-block qkv, the two attention products, proj and MLP (the DINOv3
+    block's SwiGLU, three matrices; or the MoE block's, in every
+    ``moe_every``-th block), the head on CLS."""
     d, n, depth = mcfg.dim, mcfg.seq_len, mcfg.depth
-    hidden = int(d * mcfg.mlp_ratio)
     patch_embed = 2.0 * mcfg.n_patches * (3 * mcfg.patch ** 2) * d
     qkv = 2.0 * n * d * (3 * d)
     attn_bmm = 2.0 * (2.0 * n * n * d)  # QK^T and AV
     proj = 2.0 * n * d * d
-    mlp = 2.0 * n * d * hidden * 2  # fc1 + fc2
+    mlp = 2.0 * n * d * mcfg.hidden * (3 if mcfg.block == "dinov3" else 2)  # w12 + w3, or fc1 + fc2
     head = 2.0 * (d * d + d * mcfg.out_dim)  # CLS token only
     n_moe = sum(1 for i in range(depth) if i % mcfg.moe_every == mcfg.moe_every - 1) \
         if mcfg.moe_experts > 0 else 0

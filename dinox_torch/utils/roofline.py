@@ -147,6 +147,26 @@ def layer_norm_bwd_work(rows: int, dim: int, x_bytes: int = BF16, dy_bytes: int 
             14.0 * rows * dim)
 
 
+def rope_work(views: int, patches: int, dim: int, heads: int) -> tuple[float, float]:
+    """The RoPE rotation (``ops.rope``), forward or backward: the q and k
+    columns of the patch rows read and written, bf16, and the f32 cos and
+    sin tables read; 3 operations a rotated element. The backward kernel
+    also copies v and the unrotated rows (it works out of place): not the
+    function's bytes."""
+    rotated = views * patches * 2 * dim
+    return 2.0 * BF16 * rotated + F32 * patches * (dim // heads), 3.0 * rotated
+
+
+def swiglu_fwd_work(rows: int, hidden: int) -> tuple[float, float]:
+    """The SwiGLU gate (``ops.swiglu``): ``[u | g]`` in, z out, bf16."""
+    return BF16 * rows * 3.0 * hidden, 4.0 * rows * hidden
+
+
+def swiglu_bwd_work(rows: int, hidden: int) -> tuple[float, float]:
+    """Its backward: ``[u | g]`` and dz in, ``[du | dg]`` out."""
+    return BF16 * rows * 5.0 * hidden, 10.0 * rows * hidden
+
+
 def tpu_kernel_bounds(peaks: tuple[float, float], views: int = 192, n: int = 261,
                       dim: int = 384, heads: int = 6, mlp_ratio: float = 4.0,
                       giant: tuple[int, int, int, int] = (2, 261, 1408, 16)) -> list[dict]:

@@ -21,7 +21,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from dinox_torch.models.config import HUB_DEFAULT_CONFIG, ModelConfig
+from dinox_torch.models.config import HUB_DEFAULT_CONFIG, PORT_ONLY_FIELDS, ModelConfig
 from dinox_torch.models.vit import PatchViT
 from dinox_torch.utils.platform import resolve_device
 from dinox_torch.utils.tracing import span
@@ -85,9 +85,13 @@ class LoadedModel(DeviceViT):
             return super().forward(x, spacing)
 
 
+_DEFAULT = ModelConfig()
+
+
 def _cfg_from_dict(config: dict[str, Any]) -> ModelConfig:
     """Accepts both the packages' ModelConfig dicts and the reference's
-    config.json / training-config formats."""
+    config.json / training-config formats; the port-only fields of a
+    DINOv3-block model (``models.config.PORT_ONLY_FIELDS``) where given."""
     merged = dict(HUB_DEFAULT_CONFIG)
     merged.update({k: v for k, v in config.items() if v is not None})
     if "gelu_approx" not in config:
@@ -110,6 +114,7 @@ def _cfg_from_dict(config: dict[str, Any]) -> ModelConfig:
         moe_experts=int(merged.get("moe_experts", 0)),
         moe_every=int(merged.get("moe_every", 2)),
         moe_capacity_factor=float(merged.get("moe_capacity_factor", 1.25)),
+        **{k: type(getattr(_DEFAULT, k))(merged[k]) for k in PORT_ONLY_FIELDS if k in merged},
     )
 
 
@@ -308,6 +313,8 @@ def export_hub_checkpoint(
             "heads": c.heads, "mlp_ratio": c.mlp_ratio, "num_registers": c.num_registers,
             "scale_aware": c.scale_aware, "gelu_approx": c.gelu_approx,
         }
+    if c.block != "vit":
+        config = {**config, **{k: getattr(c, k) for k in PORT_ONLY_FIELDS}}
     if jax_format:
         config = {**config, "weights_format": "jax", "moe_experts": c.moe_experts,
                   "moe_every": c.moe_every, "moe_capacity_factor": c.moe_capacity_factor}

@@ -73,7 +73,7 @@ def stage_release(
         "heads": model.cfg.heads,
         "patch": model.cfg.patch,
         "img_size": model.cfg.img_size,
-        "mlp_ratio": model.cfg.mlp_ratio,
+        "mlp_ratio": model.cfg.hidden / model.cfg.dim,
         "scale_aware": model.cfg.scale_aware,
         # The shipped backbone's own parameter count (the JAX package's leaf
         # count), not ModelConfig.params_millions, whose rough formula

@@ -482,13 +482,14 @@ def test_mha_attention_rejects_what_it_cannot_take(card):
 # tail, the ViT N and two past the TPU kernel's 1024.
 EDGE_N = (1, 8, 63, 64, 65, 128, 129, 261, 1024, 1500)
 EDGE_HD = (32, 64, 88)
+PACKED_EDGE_HD = EDGE_HD + (128,)  # kernels 1-3 also take DINOv3 ViT-7B's heads
 
 
 def _packed_edge(card, b, n, heads, hd):
     return torch.randn((b, n, 3 * heads * hd), generator=card, device="cuda").to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("hd", PACKED_EDGE_HD)
 @pytest.mark.parametrize("n", EDGE_N)
 def test_packed_attention_ragged_edges_match_plain(card, n, hd):
     qkv = _packed_edge(card, 2, n, 2, hd)
@@ -578,7 +579,7 @@ def _packed_grads(dqkv: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return dqkv.chunk(3, dim=-1)
 
 
-@pytest.mark.parametrize("hd", EDGE_HD)
+@pytest.mark.parametrize("hd", PACKED_EDGE_HD)
 @pytest.mark.parametrize("n", EDGE_N)
 def test_packed_attention_backward_ragged_edges_match_plain(card, n, hd):
     qkv = _packed_edge(card, 2, n, 2, hd)
@@ -702,14 +703,15 @@ def test_fused_attn_block_never_reads_past_the_operand(card):
     assert all(torch.equal(a, b) for a, b in zip(got, fused_attn_block_forward(*args, 16)))
 
 
-@pytest.mark.parametrize("name, count", [("packed_attention", 3), ("mha_attention", 3),
-                                         ("packed_attention_bwd", 6), ("mha_attention_bwd", 6),
+@pytest.mark.parametrize("name, count", [("packed_attention", 4), ("mha_attention", 3),
+                                         ("packed_attention_bwd", 8), ("mha_attention_bwd", 6),
                                          ("fused_attn_block", 7), ("fused_mlp", 3),
-                                         ("fused_mlp_bwd", 8)])
+                                         ("fused_mlp_bwd", 8), ("rope", 2), ("swiglu", 2)])
 def test_forward_kernels_do_not_spill(card, name, count):
     """ptxas -v of the library: every instantiation with 0 bytes of spill
-    stores; the forwards at hd 32, 64, 88, the backward pairs' dq and dkv
-    kernels at each of them, kernel 6's two GEMMs at one and two consumer
+    stores; the forwards at hd 32, 64, 88 (kernel 1 also 128), the backward
+    pairs' dq and dkv kernels at each of them (kernels 2/3 also 128), the
+    RoPE and SwiGLU kernels' forward and backward, kernel 6's two GEMMs at one and two consumer
     warpgroups beside kernel 1's core at hd 32, 64, 88, kernel 7's fc1 at
     one and two consumer warpgroups and its fc2, and kernel 8's six
     launches (its two row kernels at two widths each)."""
@@ -1310,3 +1312,105 @@ def test_training_micro_step_through_the_layer_norm_kernels_matches_eager(card, 
             continue
         cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0)
         assert cos.item() >= 0.99
+
+
+# -- DINOv3 ViT-7B's block: kernels 1-3 at head dim 128, RoPE and SwiGLU ---------
+
+from dinox_torch.models.vit import DinoStudentTeacher  # noqa: E402
+from dinox_torch.ops import rope as rk  # noqa: E402
+from dinox_torch.ops import swiglu as sk  # noqa: E402
+
+# (views, tokens, heads, hd): a 7B training micro-step's views at 32 heads of
+# 128, and a ragged small one.
+HD128_SHAPES = [(64, 261, 32, 128), (3, 37, 2, 128)]
+
+
+@pytest.mark.parametrize("shape", HD128_SHAPES)
+def test_packed_attention_at_head_dim_128_matches_plain(card, shape):
+    b, n, heads, hd = shape
+    qkv = _packed_edge(card, b, n, heads, hd)
+    do = torch.randn((b, n, heads * hd), generator=card, device="cuda").to(torch.bfloat16)
+    got = flash_attention_packed(qkv, heads)
+    assert (got.float() - packed_attention_reference(qkv, heads).float()).abs().max().item() < TOL
+    dqkv = packed_attention_backward(qkv, do, heads)
+    assert torch.equal(dqkv, packed_attention_backward(qkv, do, heads))
+    _close_to_plain_backward(_packed_grads(dqkv),
+                             _packed_grads(packed_attention_backward_reference(qkv, do, heads)))
+
+
+def _rope_inputs(card, b, grid, heads, hd, regs=4):
+    n = 1 + grid * grid + regs
+    qkv = torch.randn((b, n, 3 * heads * hd), generator=card, device="cuda").to(torch.bfloat16)
+    cos, sin = rk.rope_tables(grid, hd, 1.37, "cuda")
+    return qkv, cos, sin
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 32, 128), (3, 5, 2, 32)])
+def test_rope_kernels_match_plain_bit_for_bit(card, shape):
+    """The rotation's products and sum without fused multiply-adds, as the
+    plain version computes them: the same bits, forward and backward."""
+    b, grid, heads, hd = shape
+    qkv, cos, sin = _rope_inputs(card, b, grid, heads, hd)
+    want = rk.rope_reference(qkv, cos, sin, heads, 1)
+    got = qkv.clone()
+    before = rk.rope_fwd.launches, rk.rope_bwd.launches
+    rk.rope_fwd(got, cos, sin, heads, 1)
+    back = rk.rope_bwd(qkv, cos, sin, heads, 1)
+    torch.cuda.synchronize()
+    assert (rk.rope_fwd.launches, rk.rope_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert torch.equal(back, rk.rope_backward_reference(qkv, cos, sin, heads, 1))
+    assert torch.equal(got[:, 0], qkv[:, 0]) and torch.equal(got[:, 1 + grid * grid:], qkv[:, 1 + grid * grid:])
+
+
+def test_rope_rejects_what_it_cannot_take(card):
+    qkv, cos, sin = _rope_inputs(card, 2, 4, 2, 32)
+    with pytest.raises(TypeError):
+        rk.rope_fwd(qkv.float(), cos, sin, 2, 1)
+    with pytest.raises(ValueError):
+        rk.rope_fwd(qkv, cos, sin, 2, 20)  # patch rows past N
+    with pytest.raises(ValueError):
+        rk.rope_fwd(qkv[..., :3 * 2 * 24].contiguous(), cos, sin, 2, 1)  # hd 24
+
+
+@pytest.mark.parametrize("rows, hidden", [(16704, 8192), (37, 24)])
+def test_swiglu_kernels_match_plain(card, rows, hidden):
+    """exp may differ from PyTorch's by a float32 ulp, which can move a
+    bf16 rounding: within one bf16 step of the plain version."""
+    h = (2 * torch.randn((rows, 2 * hidden), generator=card, device="cuda")).to(torch.bfloat16)
+    dz = torch.randn((rows, hidden), generator=card, device="cuda").to(torch.bfloat16)
+    before = sk.swiglu_fwd.launches, sk.swiglu_bwd.launches
+    z, dh = sk.swiglu_fwd(h), sk.swiglu_bwd(h, dz)
+    torch.cuda.synchronize()
+    assert (sk.swiglu_fwd.launches, sk.swiglu_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for got, want in ((z, sk.swiglu_reference(h)), (dh, sk.swiglu_backward_reference(h, dz))):
+        err = (got.float() - want.float()).abs()
+        assert (err <= 2.0 ** -7 * want.float().abs() + 1e-30).all()
+    assert torch.equal(z, sk.swiglu_fwd(h)) and torch.equal(dh, sk.swiglu_bwd(h, dz))
+
+
+def test_rope_block_micro_step_through_the_kernels_matches_the_cpu(card):
+    """A 7B-shaped block stack (2 blocks of dim 512, 4 heads of 128) through
+    kernels 1-3, RoPE and SwiGLU on the card against the plain versions on
+    the CPU: the loss, and each gradient's norm."""
+    cfg = MODEL_CONFIGS["vit-7b16"].replace(dim=512, depth=2, heads=4, ffn_hidden=1024, img_size=64,
+                                            out_dim=256, scale_aware=True)
+    x = torch.rand((4, 64, 64, 3), generator=card, device="cuda")
+    sp = torch.rand((4, 3), generator=card, device="cuda") + 0.5
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = DinoStudentTeacher(cfg, device=dev).train()
+        model.backbone.set_rope_rescale(1.6)
+        counts = rk.rope_fwd.launches, sk.swiglu_fwd.launches, flash_attention_packed.launches
+        s_out, feats = model.forward_features(x.to(dev), sp.to(dev))
+        loss = s_out.float().square().mean() + feats.float().square().mean()
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (rk.rope_fwd.launches - counts[0], sk.swiglu_fwd.launches - counts[1],
+                    flash_attention_packed.launches - counts[2]) == (2, 2, 2)
+        out[dev] = (float(loss), {n: float(p.grad.norm()) for n, p in model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 2e-2 * abs(out["cpu"][0])
+    for name, g in out["cpu"][1].items():
+        assert abs(out["cuda"][1][name] - g) <= 5e-2 * g + 1e-6, name
+

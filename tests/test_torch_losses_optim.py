@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from dinox_torch.models.config import ModelConfig
+from dinox_torch.models.config import PORT_ONLY_FIELDS, ModelConfig
 from dinox_torch.models.vit import DinoStudentTeacher
 from dinox_torch.train import losses
 from dinox_torch.train.schedule import get_lr, get_lr_tensor
@@ -98,7 +98,9 @@ def test_train_config_schema_matches_jax():
         return [(f.name, f.default) for f in dataclasses.fields(cls) if f.name != "model"]
 
     assert fields(TrainConfig) == fields(jax_state.TrainConfig)
-    assert TrainConfig().model.to_dict() == jax_state.TrainConfig().model.to_dict()
+    port = TrainConfig().model.to_dict()  # the JAX fields, then the port's own at their defaults
+    assert TrainConfig().model.block == "vit" and {k: port.pop(k) for k in PORT_ONLY_FIELDS}
+    assert port == jax_state.TrainConfig().model.to_dict()
     assert dataclasses.asdict(TrainConfig().aug) == dataclasses.asdict(jax_state.TrainConfig().aug)
 
 

@@ -18,7 +18,7 @@ import torch
 from dinox_torch import pretrain
 from dinox_torch.data import index as t_index
 from dinox_torch.data.png16 import write_png16
-from dinox_torch.models.config import MODEL_CONFIGS
+from dinox_torch.models.config import MODEL_CONFIGS, PORT_ONLY_FIELDS, ModelConfig
 from dinox_tpu.models.config import MODEL_CONFIGS as JAX_MODEL_CONFIGS
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -82,7 +82,9 @@ def test_reconcile_resume_model_config_matches_jax():
         MODEL_CONFIGS["vit-tiny"].replace(gelu_approx=True, attn_impl="pallas"), stored)
     want = _jax_cli().reconcile_resume_model_config(
         JAX_MODEL_CONFIGS["vit-tiny"].replace(gelu_approx=True, attn_impl="pallas"), stored)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    port = dataclasses.asdict(got)  # the JAX fields, then the port's own at their defaults
+    assert {k: port.pop(k) for k in PORT_ONLY_FIELDS} == {k: getattr(ModelConfig(), k) for k in PORT_ONLY_FIELDS}
+    assert port == dataclasses.asdict(want)
     assert got.gelu_approx is False and got.attn_impl == "pallas" and got.dim == 240
     assert pretrain._RUNTIME_ONLY_MODEL_FIELDS == _jax_cli()._RUNTIME_ONLY_MODEL_FIELDS
 

@@ -97,15 +97,41 @@ def test_unported_options_raise():
 
 
 def test_config_schema_matches_jax():
+    """The JAX package's fields, defaults and presets, in its order; after
+    them the port's own fields (DINOv3's block), whose defaults build the
+    JAX package's model, and the port's own presets."""
     def fields(cls):
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
-    assert fields(torch_config.ModelConfig) == fields(jax_config.ModelConfig)
+    jax_fields = fields(jax_config.ModelConfig)
+    port_fields = fields(torch_config.ModelConfig)
+    assert port_fields[:len(jax_fields)] == jax_fields
+    assert [name for name, _ in port_fields[len(jax_fields):]] == list(torch_config.PORT_ONLY_FIELDS)
     assert torch_config.HUB_DEFAULT_CONFIG == jax_config.HUB_DEFAULT_CONFIG
-    assert ({k: v.to_dict() for k, v in torch_config.MODEL_CONFIGS.items()}
-            == {k: v.to_dict() for k, v in jax_config.MODEL_CONFIGS.items()})
+    jax_names = [name for name, _ in jax_fields]
+    assert set(torch_config.MODEL_CONFIGS) - set(jax_config.MODEL_CONFIGS) == {"vit-7b16"}
+    for k, v in jax_config.MODEL_CONFIGS.items():
+        port = torch_config.MODEL_CONFIGS[k].to_dict()
+        assert {n: port[n] for n in jax_names} == v.to_dict()
+        assert torch_config.MODEL_CONFIGS[k].block == "vit"
     c = torch_config.MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     j = jax_config.MODEL_CONFIGS["vit-small"].replace(scale_aware=True)
     assert (c.n_patches, c.seq_len, c.params_millions) == (j.n_patches, j.seq_len, j.params_millions)
     with pytest.raises(ValueError):
         torch_config.ModelConfig(dim=100, heads=6)
+    # The port-only fields at their defaults build today's model: a config
+    # from the JAX package's dict gives the JAX interop's state_dict keys
+    # and, on the same weights, the forward bits of one that names the
+    # defaults.
+    kw = dict(BASE, dtype="float32")
+    from_jax = torch_config.ModelConfig.from_dict(jax_config.ModelConfig(**kw).to_dict())
+    named = torch_config.ModelConfig(**kw, **{n: getattr(torch_config.ModelConfig(), n)
+                                             for n in torch_config.PORT_ONLY_FIELDS})
+    a, b = PatchViT(from_jax, generator=torch.Generator().manual_seed(3)).eval(), PatchViT(named).eval()
+    b.load_state_dict(a.state_dict(), strict=True)
+    jcfg = jax_config.ModelConfig(**kw)
+    assert sorted(a.state_dict()) == sorted(jax_to_torch_backbone(_perturbed_params(jcfg, 0)))
+    assert all(type(blk).__name__ == "TransformerBlock" for blk in a.blocks)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 56, 56, 3)).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(a(x, torch.ones(2, 3)), b(x, torch.ones(2, 3)))
